@@ -1,0 +1,88 @@
+"""Per-layer precision policy: the software face of the multi-precision datapath.
+
+Counterpart of ``PrecisionPolicy`` in ``repro/core/precision_policy.py``: a
+mapping from parameter paths (glob patterns) to ``Precision`` modes with a
+default, serialisable to JSON so it rides along in configs and artifacts.
+``from_sensitivity`` and ``policy_einsum`` belong to later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+import json
+import os
+from typing import Mapping
+
+from repro_torch.core.quantization import Precision
+
+
+@dataclasses.dataclass
+class PrecisionPolicy:
+    """Glob-pattern -> Precision mapping with a default mode."""
+
+    rules: dict[str, Precision] = dataclasses.field(default_factory=dict)
+    default: Precision = Precision.FP32
+
+    def precision_for(self, path: str) -> Precision:
+        # Most-specific matching pattern wins: longest first, then fewest
+        # wildcards (an exact path beats an equal-length glob), then the
+        # lexicographically smallest pattern.  Resolution is a function of
+        # the rule set, never of dict insertion order.
+        best = None
+        best_key: tuple | None = None
+        for pat in sorted(self.rules):
+            if fnmatch.fnmatch(path, pat):
+                key = (len(pat), -sum(pat.count(c) for c in "*?["))
+                if best_key is None or key > best_key:
+                    best, best_key = self.rules[pat], key
+        return best if best is not None else self.default
+
+    @staticmethod
+    def uniform(precision: Precision) -> "PrecisionPolicy":
+        return PrecisionPolicy(rules={}, default=precision)
+
+    def to_dict(self) -> dict:
+        return {
+            "default": self.default.value,
+            "rules": {k: v.value for k, v in self.rules.items()},
+        }
+
+    @staticmethod
+    def from_dict(d: Mapping) -> "PrecisionPolicy":
+        return PrecisionPolicy(
+            rules={k: Precision(v) for k, v in d["rules"].items()},
+            default=Precision(d["default"]),
+        )
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @staticmethod
+    def from_json(s: str) -> "PrecisionPolicy":
+        return PrecisionPolicy.from_dict(json.loads(s))
+
+    @staticmethod
+    def parse(spec: str, *, default: "Precision | str | None" = None) -> "PrecisionPolicy":
+        """Build a policy from a CLI-ish spec: a path to a ``to_json`` file,
+        an inline JSON string, or comma-separated ``pattern=mode`` rules
+        (``"conv0/w=bf16,dense1/w=fp32"``).  ``default`` sets the default
+        mode of the rule-list form (the JSON forms carry their own)."""
+        default = Precision(default) if default is not None else Precision.FP32
+        spec = spec.strip()
+        if os.path.exists(spec):
+            with open(spec) as f:
+                return PrecisionPolicy.from_json(f.read())
+        if spec.startswith("{"):
+            return PrecisionPolicy.from_json(spec)
+        rules = {}
+        for item in spec.split(","):
+            if not item.strip():
+                continue
+            pat, sep, mode = item.partition("=")
+            if not sep:
+                raise ValueError(f"policy rule {item!r} is not 'pattern=mode'")
+            rules[pat.strip()] = Precision(mode.strip())
+        return PrecisionPolicy(rules=rules, default=default)
+
+
+__all__ = ["Precision", "PrecisionPolicy"]

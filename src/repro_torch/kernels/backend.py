@@ -1,0 +1,170 @@
+"""Device resolution and the CUDA kernel library.
+
+Counterpart of ``repro/kernels/backend.py``.  There, one switch picked the
+Pallas interpreter off the TPU; here the device of the tensor decides:
+
+* a CPU tensor goes to the kernel's plain PyTorch version (the CPU tests'
+  path, and the oracle the card is held against);
+* a CUDA tensor goes to the hand-written kernel, or the call raises.  No
+  path falls back from the card to the plain version.
+
+The kernels (``csrc/*.cu``) are compiled on first use by one ``nvcc`` call
+into a shared library with a plain C interface, under ``build/repro_torch/``
+at the root of the checkout, and loaded with ``ctypes``.  The library name
+carries a hash of the sources, so an edited kernel is never served from a
+stale build.  Every C entry point returns ``cudaGetLastError()`` after its
+launches; :func:`check` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # no contraction of a*b+c into an FMA: the epilogues and the CORDIC
+    # range reduction must round each multiply and add like the reference
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: C signature of every entry point: (argtypes) -> int (a cudaError_t)
+SIGNATURES = {
+    # x, w, acc, out, x_scale, w_scale, bias, clip, has_clip, relu,
+    # xs_per_row, ws_per_col, M, K, N, stream
+    "quant_matmul_i8": (
+        _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P
+    ),
+    # x, w, acc, out, x_scale, w_scale, bias, clip, has_clip, relu,
+    # xs_per_row, ws_per_col, B, L, Cin, Cout, K, stream
+    "conv1d_fused_i8": (
+        _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
+    ),
+    # x, out, rows, cols, stream
+    "cordic_softmax_f32": (_P, _P, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds: float = 0.0
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; asking for CUDA without a GPU raises
+    (entry points never drop to the CPU on their own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was requested but no CUDA device is available; "
+                "pass device='cpu' to run the plain PyTorch path"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
+    return dev
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on a CUDA device, False when every one is
+    on the CPU; mixed or other devices raise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("kernel operands lie on different CUDA devices")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"kernel operands on devices {sorted(kinds)}")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha1()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = Path(CUDA_HOME) / "bin" / "nvcc" if CUDA_HOME else None
+    if cand is not None and cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the kernel library unless the current
+    sources are already built; returns the library path."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        build_seconds = 0.0
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()

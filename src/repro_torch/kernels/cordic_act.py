@@ -1,0 +1,185 @@
+"""CORDIC activation unit (POLARON's AF stage): kernel K3 and its plain twin.
+
+Counterpart of ``repro/kernels/cordic_act.py``.  The hyperbolic CORDIC runs
+bit-faithfully in Q15.16 int32 shift-add (20 stages, iterations 4 and 13
+repeated, arithmetic right shifts), so the port reproduces the RTL unit's
+numbers, not merely the maths.
+
+* :func:`cordic_softmax` is the classifier head of the serving path.  On a
+  CUDA tensor it launches kernel K3 (``csrc/cordic_softmax.cu``, one warp
+  per row); on a CPU tensor it runs :func:`cordic_softmax_plain`.
+* :func:`cordic_activation` is the elementwise unit for all seven modes.
+  Its plain version is complete; the elementwise CUDA kernel for the modes
+  other than the softmax's ``exp`` is ROADMAP item K3b, so a CUDA tensor
+  raises ``NotImplementedError`` there.
+
+Three details carry the reference's bits (its CPU numerics, which the
+golden artifacts pin): ``jnp.exp2(k)`` is ``exp(ln2 * k)`` with XLA's
+``exp``, not an exact power of two
+(:func:`repro_torch.core.f32_math.exp2_f32`); ``v / ln2`` by the constant
+is evaluated as ``v * float32(1 / ln2)``; and XLA's fused loops contract
+``1 + t*t`` (tanh doubling) and ``v + 0.044715 v^3`` (gelu) into FMAs.
+Row sums run left to right.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.f32_math import INV_LN2_F32, LN2_F32, exp2_f32, fma_f32, relu
+from repro_torch.kernels import backend
+
+F = 16  # fraction bits (Q15.16)
+ONE = 1 << F
+
+# hyperbolic iteration schedule: 1..18 with 4 and 13 repeated
+ITERS = (1, 2, 3, 4, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 13, 14, 15, 16, 17, 18)
+ATANH_TABLE = tuple(round(float(np.arctanh(2.0**-i)) * ONE) for i in ITERS)
+_GAIN = float(np.prod([np.sqrt(1.0 - 2.0 ** (-2 * i)) for i in ITERS]))
+X0 = round(ONE / _GAIN)  # pre-scaled so x converges to cosh, y to sinh
+
+MODES = ("tanh", "sigmoid", "exp", "swish", "gelu", "selu", "relu")
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def _c(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def cordic_sinh_cosh(z_fx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotation-mode hyperbolic CORDIC on Q15.16 int32; returns (cosh, sinh)
+    in Q15.16.  Valid for |z| <= ~1.118."""
+    x = torch.full_like(z_fx, X0)
+    y = torch.zeros_like(z_fx)
+    z = z_fx
+    for shift, e in zip(ITERS, ATANH_TABLE):
+        d_pos = z >= 0
+        xs = x >> shift
+        ys = y >> shift
+        x, y, z = (
+            torch.where(d_pos, x + ys, x - ys),
+            torch.where(d_pos, y + xs, y - xs),
+            torch.where(d_pos, z - e, z + e),
+        )
+    return x, y
+
+
+def _fx(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> Q15.16 (round half to even)."""
+    return torch.round(v * float(ONE)).to(torch.int32)
+
+
+def _fl(v: torch.Tensor) -> torch.Tensor:
+    """Q15.16 -> fp32 (the scale is a power of two: exact)."""
+    return v.to(torch.float32) * (1.0 / ONE)
+
+
+def exp_core(v: torch.Tensor) -> torch.Tensor:
+    """exp(v) via base-2 range reduction + CORDIC exp(r) = cosh r + sinh r."""
+    v = torch.clamp(v, -30.0, 30.0)
+    k = torch.round(v * _c(INV_LN2_F32, v))
+    r = v - k * _c(LN2_F32, v)  # |r| <= ln2/2, inside the convergence domain
+    c, s = cordic_sinh_cosh(_fx(r))
+    return _fl(c + s) * exp2_f32(k)
+
+
+def tanh_core(v: torch.Tensor) -> torch.Tensor:
+    """tanh via two doublings, tanh(2a) = 2t / (1 + t^2) with a = v/4;
+    saturates to sign(v) for |v| >= 4.4."""
+    a = torch.clamp(v, -4.4, 4.4) * 0.25
+    c, s = cordic_sinh_cosh(_fx(a))
+    t = torch.div(s.to(torch.float32), torch.clamp_min(c.to(torch.float32), 1.0))
+    one = torch.ones_like(t)
+    # the reference's fused loop contracts 1 + t*t into one FMA
+    t = torch.div(2.0 * t, fma_f32(t, t, one))
+    t = torch.div(2.0 * t, fma_f32(t, t, one))
+    return torch.where(v.abs() >= _c(4.4, v), torch.sign(v), t)
+
+
+def apply_mode(v: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "tanh":
+        return tanh_core(v)
+    if mode == "sigmoid":
+        return 0.5 * (1.0 + tanh_core(0.5 * v))
+    if mode == "exp":
+        return exp_core(v)
+    if mode == "swish":
+        return v * (0.5 * (1.0 + tanh_core(0.5 * v)))
+    if mode == "gelu":
+        # v + 0.044715 v^3 is one FMA in the reference's fused loop
+        cubic = fma_f32(_c(0.044715, v).expand_as(v), v * (v * v), v)
+        inner = 0.7978845608028654 * cubic
+        return 0.5 * v * (1.0 + tanh_core(inner))
+    if mode == "selu":
+        neg = _SELU_ALPHA * (exp_core(torch.clamp_max(v, 0.0)) - 1.0)
+        return _SELU_SCALE * torch.where(v > 0, v, neg)
+    if mode == "relu":
+        return relu(v)
+    raise ValueError(f"unknown CORDIC mode {mode!r}")
+
+
+def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
+    """Elementwise CORDIC activation of an fp32 tensor (plain PyTorch).
+
+    The elementwise CUDA kernel is ROADMAP K3b; until it exists a CUDA
+    tensor raises rather than running this plain version on the card.
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown CORDIC mode {mode!r}")
+    if backend.on_card(x):
+        raise NotImplementedError(
+            "the elementwise CORDIC kernel is ROADMAP K3b; on the card only "
+            "cordic_softmax (kernel K3) is ported"
+        )
+    return apply_mode(x.to(torch.float32), mode)
+
+
+def cordic_softmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Row softmax over the last axis with CORDIC exponentials: the plain
+    PyTorch twin of kernel K3, step for step (row max, ``exp_core`` of
+    ``x - max``, left-to-right row sum, IEEE division)."""
+    x = x.to(torch.float32)
+    e = exp_core(x - x.amax(dim=-1, keepdim=True))
+    s = e[..., 0:1]
+    for j in range(1, e.shape[-1]):
+        s = s + e[..., j : j + 1]
+    return torch.div(e, s)
+
+
+def cordic_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Softmax with CORDIC exponentials (max-subtracted) along ``axis``."""
+    x = x.to(torch.float32)
+    moved = axis not in (-1, x.ndim - 1)
+    if moved:
+        x = x.movedim(axis, -1)
+    if backend.on_card(x):
+        out = _cordic_softmax_cuda(x)
+    else:
+        out = cordic_softmax_plain(x)
+    return out.movedim(-1, axis) if moved else out
+
+
+def _cordic_softmax_cuda(x: torch.Tensor) -> torch.Tensor:
+    if x.ndim == 0 or x.shape[-1] == 0:
+        raise ValueError(f"cordic_softmax needs rows of at least one value, got {tuple(x.shape)}")
+    x = x.contiguous()
+    cols = x.shape[-1]
+    rows = x.numel() // cols
+    if rows >= 2**31 // 32:
+        raise ValueError(f"{rows} rows exceed one launch")
+    out = torch.empty_like(x)
+    if rows:
+        lib = backend.library()
+        with torch.cuda.device(x.device):
+            err = lib.cordic_softmax_f32(
+                x.data_ptr(), out.data_ptr(), rows, cols, backend.stream_ptr(x)
+            )
+        backend.check(err, "cordic_softmax_f32")
+        cordic_softmax.launches += 1
+    return out
+
+
+#: kernel K3 launches since the counter was last set to 0
+cordic_softmax.launches = 0

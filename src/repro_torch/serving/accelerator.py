@@ -1,0 +1,190 @@
+"""Deployed-datapath inference: the whole 1D-F-CNN through the W8A8 kernels.
+
+Counterpart of ``repro/serving/accelerator.py``.  Every int8/fxp8 conv runs
+on the fused conv (kernel K2) and every int8/fxp8 dense layer on the W8A8
+matmul (kernel K1), with bias + ReLU fused into each epilogue; the
+classifier head finishes with the CORDIC softmax (kernel K3).  Activations
+are quantised per request, per sample by default, so each row's result is
+independent of its co-batch (streaming == batched, bitwise).
+
+The artifact's per-layer tags drive dispatch: int8/fxp8 layers take the
+kernels, bf16 layers compute on bf16-rounded operands widened to fp32
+(products exact, fp32 sums), fp32 layers in plain fp32 with TF32 off.  A
+pruned artifact's ``keep_frames`` trims frames between the last pool and the
+flatten, which keeps the reference's ``(frames, channels)`` row-major order.
+
+On ``device="cuda"`` (the default) every kernel runs on the card; on
+``device="cpu"`` the kernels' plain PyTorch versions run.  Without a GPU a
+CUDA request raises.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.f32_math import relu
+from repro_torch.core.quantization import bf16_round, fxp8_quantize, int8_symmetric
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.conv1d_fused import conv1d_fused_q
+from repro_torch.kernels.cordic_act import cordic_softmax
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.models.cnn1d import CNNConfig, maxpool2
+from repro_torch.serving.quantized_params import QuantizedParams, quantize_params
+
+
+def _quantizer(layer_mode: str):
+    return fxp8_quantize if layer_mode == "fxp8" else int8_symmetric
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 convolutions and matmuls in full fp32: cuDNN defaults to TF32
+    for convolutions, and the matmul switch is process-wide."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _float_operands(h: torch.Tensor, w: torch.Tensor, lmode: str):
+    """bf16 layers: bf16-rounded operands, widened (exactly) to fp32, so the
+    products are exact and the sums fp32, like the reference's bf16-in /
+    fp32-accumulate op."""
+    if lmode == "bf16":
+        return bf16_round(h), w.to(torch.float32)
+    return h, w.to(torch.float32)
+
+
+def _conv1d_float(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """'same' 1-D conv in NWC: (B, L, Cin) x (K, Cin, Cout) -> (B, L, Cout)."""
+    k = w.shape[0]
+    pad_l = (k - 1) // 2
+    hc = F.pad(h.transpose(1, 2), (pad_l, k - 1 - pad_l))
+    return F.conv1d(hc, w.permute(2, 1, 0).contiguous()).transpose(1, 2)
+
+
+def forward_quantized(
+    qp: QuantizedParams, x: torch.Tensor, per_sample_acts: bool = True
+) -> torch.Tensor:
+    """(B, M) features on the artifact's device -> (B, n_classes) probabilities."""
+    act_axis = 0 if per_sample_acts else None
+    bsz = x.shape[0]
+    conv_modes, dense_modes = qp.layer_modes
+    h = x[:, :, None].to(torch.float32)
+    with full_fp32():
+        for layer, lmode in zip(qp.convs, conv_modes):
+            if lmode in ("int8", "fxp8"):
+                hq = _quantizer(lmode)(h, axis=act_axis)  # per-request act quant
+                h = conv1d_fused_q(
+                    hq.q,
+                    layer["w"].q,
+                    hq.scale.reshape(-1, 1) if per_sample_acts else hq.scale,
+                    layer["w"].scale,
+                    layer["b"],
+                    act="relu",  # CORDIC ReLU == max(v, 0): fused into the epilogue
+                )
+            else:
+                hin, w = _float_operands(h, layer["w"], lmode)
+                h = relu(_conv1d_float(hin, w) + layer["b"])
+            h = maxpool2(h)
+        if qp.keep_frames is not None:
+            h = h[:, : qp.keep_frames, :]  # pruned artifact: boundary-frame trim
+        h = h.reshape(bsz, -1)  # (frames, channels) row-major
+        for i, (layer, lmode) in enumerate(zip(qp.denses, dense_modes)):
+            act = "relu" if i < len(qp.denses) - 1 else None
+            if lmode in ("int8", "fxp8"):
+                hq = _quantizer(lmode)(h, axis=act_axis)
+                h = quant_matmul(
+                    hq.q,
+                    layer["w"].q,
+                    hq.scale.reshape(bsz if per_sample_acts else 1, 1),
+                    layer["w"].scale.reshape(1, -1),
+                    layer["b"],
+                    act=act,
+                )
+            else:
+                hin, w = _float_operands(h, layer["w"], lmode)
+                h = torch.matmul(hin, w) + layer["b"]
+                if act == "relu":
+                    h = relu(h)
+    return cordic_softmax(h)
+
+
+def accelerator_forward(
+    params: dict | QuantizedParams,
+    x,
+    cfg: CNNConfig,
+    *,
+    device="cuda",
+    fxp: bool = False,
+    per_sample_acts: bool = True,
+    raw_windows: bool = False,
+) -> torch.Tensor:
+    """x: (B, M) features -> (B, n_classes) class probabilities on
+    ``device``, computed on the kernel datapath.
+
+    Pass a :class:`QuantizedParams` artifact on ``device`` to serve from the
+    weight cache (no weight quantisation per call); a raw fp32 ``params``
+    dict is baked on the fly (``fxp`` picks the mode) for one-off sign-offs.
+    ``per_sample_acts=False`` quantises activations with one per-tensor
+    scale (the legacy A/B surface of the reference).
+    """
+    if raw_windows:
+        raise NotImplementedError(
+            "raw_windows=True needs the on-device DSP front-end, ROADMAP M4"
+        )
+    dev = resolve_device(device)
+    if isinstance(params, QuantizedParams):
+        qp = params
+        if qp.device.type != dev.type:
+            raise ValueError(
+                f"the artifact lives on {qp.device}, the forward was asked "
+                f"for {dev}; load or bake it with device={dev.type!r}"
+            )
+    else:
+        qp = quantize_params(params, cfg, mode="fxp8" if fxp else "int8", device=dev)
+    x = torch.as_tensor(x)
+    if x.ndim != 2:
+        raise ValueError(f"(B, M) feature rows expected, got {tuple(x.shape)}")
+    return forward_quantized(qp, x.to(qp.device), per_sample_acts)
+
+
+def accelerator_forward_sharded(*args, **kwargs):
+    """Sharded-batch dispatch over several GPUs is ROADMAP M8."""
+    raise NotImplementedError("sharded-batch dispatch is ROADMAP M8")
+
+
+def precompile_slot_shapes(
+    qp: QuantizedParams,
+    cfg: CNNConfig,
+    slot_counts,
+    *,
+    row_width: int | None = None,
+) -> None:
+    """Warm the datapath once per batch (slot) shape of the ladder: the
+    first call builds and loads the kernel library, and each shape's first
+    call pays its allocator and launch set-up outside a serving round.
+    Zeros are the engine's silence padding, so there is no NaN hazard."""
+    if not isinstance(qp, QuantizedParams):
+        raise TypeError(
+            f"precompile_slot_shapes needs a baked QuantizedParams artifact, "
+            f"got {type(qp).__name__}"
+        )
+    if row_width is None:
+        row_width = cfg.input_len
+    for slots in sorted(set(int(s) for s in slot_counts)):
+        x = torch.zeros((slots, row_width), dtype=torch.float32, device=qp.device)
+        accelerator_forward(qp, x, cfg, device=qp.device).cpu()
+
+
+__all__ = [
+    "accelerator_forward",
+    "accelerator_forward_sharded",
+    "forward_quantized",
+    "precompile_slot_shapes",
+]

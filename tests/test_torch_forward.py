@@ -1,0 +1,138 @@
+"""The port's kernel-datapath forward against the JAX reference.
+
+The golden artifacts replay bitwise, ``detector_pruned_mixed`` included.
+Forwards from the same fp32 params match the reference bitwise in the
+int8, fxp8 and pruned+mixed cells: at these widths PyTorch's CPU conv and
+matmul sum the bf16/fp32 layers in the reference's order (the card's
+cuDNN/cuBLAS need not, which is why ``chip_smoke.py`` holds the mixed cell
+within a tolerance there).  Every row's result is independent of its
+co-batch.
+"""
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core.precision_policy import PrecisionPolicy as JPolicy  # noqa: E402
+from repro.core.pruning import plan_prune as j_plan  # noqa: E402
+from repro.data.features import FEATURE_DIMS  # noqa: E402
+from repro.models import cnn1d as jcnn  # noqa: E402
+from repro.serving import quantized_params as jqp  # noqa: E402
+from repro.serving.accelerator import accelerator_forward as j_forward  # noqa: E402
+from repro_torch.core.precision_policy import PrecisionPolicy  # noqa: E402
+from repro_torch.core.pruning import plan_prune  # noqa: E402
+from repro_torch.models import cnn1d as tcnn  # noqa: E402
+from repro_torch.serving import accelerator as tacc  # noqa: E402
+from repro_torch.serving.quantized_params import load_artifact, quantize_params  # noqa: E402
+
+torch.set_num_threads(1)
+
+GOLDEN = Path(__file__).resolve().parents[1] / "artifacts" / "golden"
+SMALL = dict(input_len=FEATURE_DIMS["zcr"], channels=(4, 8), hidden=8)
+MIXED = "conv0/w=bf16,dense1/w=fp32"
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _inputs(rows=8, width=SMALL["input_len"], seed=1234):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, width)).astype(np.float32)
+    return x * (10.0 ** rng.uniform(-2, 2, size=(rows, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["int8", "pruned_mixed"])
+def test_golden_artifacts_replay_bitwise(name):
+    x = np.load(GOLDEN / "input.npy")
+    qp = load_artifact(GOLDEN / f"detector_{name}.npz", device="cpu")
+    cfg = tcnn.CNNConfig(input_len=x.shape[1], channels=(4, 8), hidden=8)
+    got = tacc.accelerator_forward(qp, x, cfg, device="cpu")
+    assert _bits_equal(np.load(GOLDEN / f"expected_{name}.npy"), got.numpy())
+
+
+def _bake_both(cell, seed=7, channels=(4, 8), hidden=8):
+    jcfg = jcnn.CNNConfig(input_len=SMALL["input_len"], channels=channels, hidden=hidden)
+    tcfg = tcnn.CNNConfig(input_len=SMALL["input_len"], channels=channels, hidden=hidden)
+    np_params = jax.tree.map(np.asarray, jcnn.init_params(jax.random.PRNGKey(seed), jcfg))
+    jp = jax.tree.map(jnp.asarray, np_params)
+    tp = tcnn.params_from_numpy(np_params)
+    last = f"conv{len(channels) - 1}"
+    if cell == "pruned_mixed":
+        keep = channels[-1] // 2
+        jkw = dict(prune=j_plan(jp[last]["w"], jcfg.n_frames, keep=keep, trim_frames=1),
+                   policy=JPolicy.parse(MIXED, default="int8"))
+        tkw = dict(prune=plan_prune(tp[last]["w"], tcfg.n_frames, keep=keep, trim_frames=1),
+                   policy=PrecisionPolicy.parse(MIXED, default="int8"))
+        mode = "int8"
+    else:
+        jkw, tkw, mode = {}, {}, cell
+    return (
+        jcfg, jqp.quantize_params(jp, jcfg, mode=mode, **jkw),
+        tcfg, quantize_params(tp, tcfg, mode=mode, device="cpu", **tkw),
+    )
+
+
+@pytest.mark.parametrize("cell", ["int8", "fxp8"])
+@pytest.mark.parametrize("per_sample", [True, False])
+def test_forward_bitwise_vs_reference(cell, per_sample):
+    jcfg, jart, tcfg, tart = _bake_both(cell)
+    x = _inputs(rows=6)
+    want = j_forward(jart, jnp.asarray(x), jcfg, interpret=True, per_sample_acts=per_sample)
+    got = tacc.accelerator_forward(tart, x, tcfg, device="cpu", per_sample_acts=per_sample)
+    assert _bits_equal(want, got.numpy())
+
+
+def test_forward_from_fp32_params_bakes_on_the_fly():
+    jcfg, _, tcfg, _ = _bake_both("int8")
+    np_params = jax.tree.map(np.asarray, jcnn.init_params(jax.random.PRNGKey(3), jcfg))
+    x = _inputs(rows=3)
+    for fxp in (False, True):
+        want = j_forward(jax.tree.map(jnp.asarray, np_params), jnp.asarray(x), jcfg,
+                         fxp=fxp, interpret=True)
+        got = tacc.accelerator_forward(tcnn.params_from_numpy(np_params), x, tcfg,
+                                       device="cpu", fxp=fxp)
+        assert _bits_equal(want, got.numpy())
+
+
+def test_forward_pruned_mixed_vs_reference():
+    jcfg, jart, tcfg, tart = _bake_both("pruned_mixed", channels=(8, 16), hidden=16)
+    x = _inputs(rows=5)
+    want = j_forward(jart, jnp.asarray(x), jcfg, interpret=True)
+    got = tacc.accelerator_forward(tart, x, tcfg, device="cpu").numpy()
+    assert _bits_equal(want, got)
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cell", ["int8", "pruned_mixed"])
+def test_rows_independent_of_co_batch(cell):
+    """Slot permutation, batch size and silence padding never change a row."""
+    _, _, tcfg, tart = _bake_both(cell)
+    x = _inputs(rows=7, seed=99)
+    full = tacc.accelerator_forward(tart, x, tcfg, device="cpu").numpy()
+    perm = np.random.default_rng(0).permutation(7)
+    assert _bits_equal(full[perm], tacc.accelerator_forward(tart, x[perm], tcfg, device="cpu").numpy())
+    for i in range(7):
+        one = tacc.accelerator_forward(tart, x[i : i + 1], tcfg, device="cpu").numpy()
+        assert _bits_equal(full[i : i + 1], one)
+    padded = np.concatenate([x[:3], np.zeros((5, x.shape[1]), np.float32)])
+    got = tacc.accelerator_forward(tart, padded, tcfg, device="cpu").numpy()
+    assert _bits_equal(full[:3], got[:3]) and np.isfinite(got).all()
+
+
+def test_unported_paths_raise():
+    _, _, tcfg, tart = _bake_both("int8")
+    x = _inputs(rows=2)
+    with pytest.raises(NotImplementedError, match="M4"):
+        tacc.accelerator_forward(tart, x, tcfg, device="cpu", raw_windows=True)
+    with pytest.raises(NotImplementedError, match="M8"):
+        tacc.accelerator_forward_sharded(tart, x, tcfg)
+    with pytest.raises(ValueError, match="feature rows"):
+        tacc.accelerator_forward(tart, x[0], tcfg, device="cpu")
+    tacc.precompile_slot_shapes(tart, tcfg, (1, 2, 4))

@@ -1,0 +1,269 @@
+"""Port kernels K1-K3 against the JAX Pallas kernels, bitwise.
+
+On the CPU every port kernel wrapper runs its plain PyTorch version; each
+is held bitwise against the reference kernel (Pallas, interpret mode) on
+the int32 accumulators and on the fp32 outputs, over ragged shapes, K in
+{1, 3, 5}, Cin = 1, per-tensor and per-sample scales, with and without
+bias, ReLU and clip.  ``test_torch_kernels_gpu.py`` holds the CUDA kernels
+against these plain versions on the card.
+"""
+import re
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import cordic_act as jcordic  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.conv1d_fused import conv1d_fused_q as j_conv  # noqa: E402
+from repro.kernels.quant_matmul import quant_matmul as j_qmm  # noqa: E402
+from repro_torch.kernels import cordic_act as tcordic  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.conv1d_fused import (  # noqa: E402
+    conv1d_fused_q,
+)
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+
+torch.set_num_threads(1)
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _t(*arrays):
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# K1: W8A8 matmul
+# ---------------------------------------------------------------------------
+
+QMM_SHAPES = [  # M, K, N, per-row x scale
+    (1, 1, 1, False),
+    (3, 37, 5, True),
+    (8, 200, 64, True),
+    (5, 513, 7, False),
+    (16, 64, 2, True),
+]
+#: (bias, act, clip) epilogue variants swept on every shape
+EPILOGUES = [(False, None, None), (True, None, None), (True, "relu", None),
+             (False, "relu", 20.0), (True, "relu", 20.0)]
+
+
+@pytest.mark.parametrize("m,k,n,per_row", QMM_SHAPES)
+def test_quant_matmul_bitwise_vs_pallas(m, k, n, per_row):
+    rng = np.random.default_rng(m * 1000 + k + n)
+    x = rng.integers(-128, 128, (m, k), dtype=np.int8)
+    w = rng.integers(-128, 128, (k, n), dtype=np.int8)
+    xs = rng.uniform(1e-3, 1e-1, (m if per_row else 1, 1)).astype(np.float32)
+    ws = rng.uniform(1e-3, 1e-1, (1, n)).astype(np.float32)
+    b = (rng.standard_normal(n) * 50).astype(np.float32)
+    acc_j = j_qmm(*_j(x, w, xs, ws), return_acc=True, interpret=True)
+    acc_t = quant_matmul(*_t(x, w, xs, ws), return_acc=True)
+    assert acc_t.dtype == torch.int32
+    assert _bits_equal(acc_j, acc_t.numpy())
+    for has_bias, act, clip in EPILOGUES:
+        bias = b if has_bias else None
+        got = quant_matmul(*_t(x, w, xs, ws, bias), act=act, clip=clip)
+        want = j_qmm(
+            *_j(x, w, xs, ws, bias), act=act,
+            clip=None if clip is None else jnp.float32(clip), interpret=True,
+        )
+        assert _bits_equal(want, got.numpy()), (has_bias, act, clip)
+
+
+def test_quant_matmul_f32_bitwise_vs_reference():
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((6, 45)) * 3).astype(np.float32)
+    w = rng.standard_normal((45, 9)).astype(np.float32)
+    b = rng.standard_normal(9).astype(np.float32)
+    for fxp in (False, True):
+        got = tops.quant_matmul_f32(*_t(x, w, b), fxp=fxp, act="relu", clip=4.0)
+        want = jops.quant_matmul_f32(*_j(x, w, b), fxp=fxp, act="relu",
+                                     clip=jnp.float32(4.0), interpret=True)
+        assert _bits_equal(want, got.numpy())
+
+
+def test_quant_matmul_validates_arguments():
+    x = torch.zeros((2, 3), dtype=torch.int8)
+    w = torch.zeros((4, 5), dtype=torch.int8)
+    one = torch.ones((1, 1))
+    with pytest.raises(ValueError, match="expected"):
+        quant_matmul(x, w, one, one)
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(x.float(), w[:3], one, one)
+    with pytest.raises(ValueError, match="act"):
+        quant_matmul(x, w[:3], one, one, act="gelu")
+
+
+# ---------------------------------------------------------------------------
+# K2: fused conv
+# ---------------------------------------------------------------------------
+
+CONV_SHAPES = [  # B, L, Cin, Cout, K, per-sample x scale
+    (2, 33, 1, 8, 3, True),
+    (3, 50, 4, 8, 3, False),
+    (2, 40, 8, 5, 1, True),
+    (1, 17, 3, 4, 5, False),
+    (2, 70, 6, 9, 3, True),
+]
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k,per_sample", CONV_SHAPES)
+def test_conv1d_fused_bitwise_vs_pallas(b, l, cin, cout, k, per_sample):
+    rng = np.random.default_rng(b * 97 + l * 7 + cin + cout + k)
+    x = rng.integers(-128, 128, (b, l, cin), dtype=np.int8)
+    w = rng.integers(-128, 128, (k, cin, cout), dtype=np.int8)
+    xs = (rng.uniform(1e-3, 1e-1, (b, 1)) if per_sample else np.float32(0.02)).astype(np.float32)
+    ws = rng.uniform(1e-3, 1e-1, (cout,)).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 20).astype(np.float32)
+    xs_t = torch.from_numpy(np.asarray(xs))
+    acc_j = j_conv(*_j(x, w, xs, ws), return_acc=True, interpret=True)
+    acc_t = conv1d_fused_q(*_t(x, w), xs_t, *_t(ws), return_acc=True)
+    assert _bits_equal(acc_j, acc_t.numpy())
+    for has_bias, act, clip in EPILOGUES[1:]:
+        bv = bias if has_bias else None
+        got = conv1d_fused_q(*_t(x, w), xs_t, *_t(ws, bv), act=act, clip=clip)
+        want = j_conv(
+            *_j(x, w, xs, ws, bv), act=act,
+            clip=None if clip is None else jnp.float32(clip), interpret=True,
+        )
+        assert _bits_equal(want, got.numpy()), (has_bias, act, clip)
+
+
+def test_fused_conv_matches_im2col_conv_and_reference():
+    """The port's fused conv equals its im2col sign-off path on int8 payloads
+    (fp32 out, no bias), and both equal the reference's."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((2, 29, 5)) * 2).astype(np.float32)
+    w = rng.standard_normal((3, 5, 6)).astype(np.float32)
+    b = rng.standard_normal(6).astype(np.float32)
+    for fxp in (False, True):
+        fused = tops.conv1d_fused(*_t(x, w), fxp=fxp)
+        im2col = tops.conv1d_q(*_t(x, w), fxp=fxp)
+        assert _bits_equal(fused.numpy(), im2col.numpy())
+        assert _bits_equal(
+            jops.conv1d_fused(*_j(x, w, b), fxp=fxp, act="relu", interpret=True),
+            tops.conv1d_fused(*_t(x, w, b), fxp=fxp, act="relu").numpy(),
+        )
+        assert _bits_equal(
+            jops.conv1d_q(*_j(x, w, b), fxp=fxp, interpret=True),
+            tops.conv1d_q(*_t(x, w, b), fxp=fxp).numpy(),
+        )
+
+
+def test_conv1d_validates_arguments():
+    x = torch.zeros((2, 8, 3), dtype=torch.int8)
+    w = torch.zeros((3, 4, 5), dtype=torch.int8)
+    with pytest.raises(ValueError, match="expected"):
+        conv1d_fused_q(x, w, torch.ones(1), torch.ones(5))
+    with pytest.raises(ValueError, match="x_scale"):
+        conv1d_fused_q(x, w[:, :3], torch.ones(3), torch.ones(5))
+
+
+# ---------------------------------------------------------------------------
+# K3: CORDIC
+# ---------------------------------------------------------------------------
+
+
+def _act_inputs():
+    rng = np.random.default_rng(17)
+    return np.concatenate([
+        rng.uniform(-40, 40, 3000), rng.uniform(-3, 3, 3000),
+        rng.standard_normal(2000) * 8, [0.0, -0.0, 4.4, -4.4, 30.0, -30.0, 1e-30],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_activation_all_modes_bitwise(mode):
+    x = _act_inputs()
+    want = jcordic.cordic_activation(jnp.asarray(x), mode, interpret=True)
+    got = tcordic.cordic_activation(torch.from_numpy(x), mode)
+    assert _bits_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("cols", [2, 3, 5, 17])
+def test_cordic_softmax_bitwise(cols):
+    rng = np.random.default_rng(cols)
+    x = (rng.standard_normal((24, cols)) * 10.0 ** rng.uniform(-1, 2, (24, 1))).astype(np.float32)
+    x[0, :] = 0.0
+    x[1, 0] = 200.0  # exp arguments hit the -30 clip
+    want = jcordic.cordic_softmax(jnp.asarray(x), interpret=True)
+    got = tcordic.cordic_softmax(torch.from_numpy(x))
+    assert _bits_equal(want, got.numpy())
+    # the wrapper's plain path is the step-for-step twin of the kernel
+    assert _bits_equal(got.numpy(), tcordic.cordic_softmax_plain(torch.from_numpy(x)).numpy())
+
+
+def test_cordic_softmax_other_axis():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3, 4, 2)).astype(np.float32)
+    want = jcordic.cordic_softmax(jnp.asarray(x), axis=1, interpret=True)
+    got = tcordic.cordic_softmax(torch.from_numpy(x), axis=1)
+    assert _bits_equal(want, got.numpy())
+
+
+def test_cuda_source_constants_match_python():
+    """The CUDA CORDIC hard-codes the iteration schedule, the atanh table and
+    the pre-scaled start value; they must equal the Python ones."""
+    src = (CSRC / "cordic_softmax.cu").read_text()
+
+    def table(name):
+        body = re.search(name + r"\[20\] = \{([^}]*)\}", src).group(1)
+        return tuple(int(v) for v in body.replace("\n", " ").split(",") if v.strip())
+
+    assert table("kIters") == tcordic.ITERS
+    assert table("kAtanh") == tcordic.ATANH_TABLE
+    assert int(re.search(r"kX0 = (\d+);", src).group(1)) == tcordic.X0
+
+
+# ---------------------------------------------------------------------------
+# the float oracles of kernels/ref.py (the reference's tolerance budget)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_modes_close_to_float_refs(mode):
+    x = torch.from_numpy(np.random.default_rng(5).uniform(-6, 6, (7, 129)).astype(np.float32))
+    y = tcordic.cordic_activation(x, mode)
+    want = tref.ACT_REFS[mode](x)
+    if mode == "exp":
+        np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=3e-4, atol=1e-4)
+    else:
+        np.testing.assert_allclose(y.numpy(), want.numpy(), atol=2e-3)
+    sm = tcordic.cordic_softmax(x)
+    np.testing.assert_allclose(sm.sum(-1).numpy(), 1.0, atol=1e-5)
+    np.testing.assert_allclose(sm.numpy(), tref.softmax_ref(x).numpy(), atol=1e-4)
+
+
+def test_quantised_paths_within_budget_of_float_refs():
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 8)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 8, 16)) * 0.2).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    want = tref.conv1d_q_ref(x, w, b)
+    np.testing.assert_allclose(  # the float oracle itself agrees with the reference's
+        want.numpy(), np.asarray(jref.conv1d_q_ref(*_j(x.numpy(), w.numpy(), b.numpy()))),
+        rtol=1e-5, atol=1e-5,
+    )
+    for got in (tops.conv1d_q(x, w, b), tops.conv1d_fused(x, w, b)):
+        assert float((got - want).norm() / want.norm()) < 0.03
+    xq = torch.randint(-128, 128, (5, 40), dtype=torch.int8)
+    wq = torch.randint(-128, 128, (40, 6), dtype=torch.int8)
+    xs, ws = torch.full((5, 1), 0.01), torch.full((1, 6), 0.02)
+    np.testing.assert_allclose(quant_matmul(xq, wq, xs, ws).numpy(),
+                               tref.quant_matmul_ref(xq, wq, xs, ws).numpy(), rtol=1e-6, atol=1e-5)
