@@ -5,22 +5,37 @@
 
 Needs one CUDA device and ``nvcc``; it never imports JAX or the ``repro``
 package.  Phases, each of which ends the run with a non-zero exit on
-failure:
+failure (no phase catches its own failure and carries on):
 
 1. print the card's name and power limit (``nvidia-smi``), build the kernel
-   library from ``src/repro_torch/csrc`` and print the build seconds;
+   library from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
+   once) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card,
-   bitwise (int32 accumulators and fp32 outputs), at the serving path's
-   shapes and at ragged ones, and time kernel, plain version and (where
-   one exists) a single PyTorch library call at the serving shapes;
-3. serve the canonical detector (mfcc20, flatten 35,072) from a seeded
-   random checkpoint through ``MonitorEngine`` in two cells, int8 and the
-   paper's deployed cell (pruned to 8,704, ``conv0/w=bf16,dense1/w=fp32``):
-   8 streams x 4.0 s of seeded audio in uneven chunks, 8 slots.  Launch
-   counters must show that every block went through K1, K2 and K3 for
-   each int8 layer; the scores must equal a ``device="cpu"`` run of the
-   same engine (bitwise for int8, within 1e-5 for the mixed cell, whose
-   fp32/bf16 layers sum in another order on the card).
+   bitwise, at the serving path's shapes and at ragged ones, and time
+   kernel, plain version and (where one exists) a single PyTorch library
+   call: K1-K3 as before; K3b in all seven modes at the reference sweep's
+   4096 x 128, at ragged sizes and at the unit's edge values; the
+   front-end's fixed-order projection and row sum;
+3. the im2col sign-off layer ``cordic_activation(conv1d_q(x, w, b),
+   "relu")`` at each canonical conv (B = 8), K1 at M = B*L then K3b:
+   bitwise against the same expression on the CPU, and against the fused
+   conv (int32 accumulators bitwise, outputs within 1e-5);
+4. the on-device front-end for all four kinds on seeded scenes: within
+   ``PARITY_ATOL`` of the numpy oracle and bitwise row-independent across
+   batch sizes 1, 3 and 8, a permutation and silence padding; and which of
+   the three library hazards (cuBLAS by shape, reductions by shape, cuFFT
+   plans by batch count) the card shows;
+5. serve the canonical detector (mfcc20, flatten 35,072) from a seeded
+   random checkpoint in three cells, 8 streams x 4.0 s of seeded audio in
+   uneven chunks, 8 slots: int8 and the paper's deployed cell (pruned to
+   8,704, ``conv0/w=bf16,dense1/w=fp32``) through ``MonitorEngine`` with
+   host features, and ``int8_ondevice`` through the driver
+   (``repro_torch.launch.monitor.main`` with ``--artifact`` and
+   ``--device-features``).  Launch counters must show every block going
+   through its kernels; scores must equal a ``device="cpu"`` run (bitwise
+   for int8, within 1e-5 for the mixed cell) or, for the on-device cell,
+   a batched raw-window forward on the card (bitwise), with the card's
+   features within ``PARITY_ATOL`` of the CPU's.
 
 Output: per-phase lines, one JSON line with every kernel's numbers, the
 ``nvidia-smi`` line, and as the last line the contract
@@ -89,25 +104,33 @@ def call_ms(torch, fn, *, warmup: int = 10, iters: int = 60) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_ops(torch, fn, *, iters: int) -> list:
+def device_ops(torch, fn, *, iters: int, attempts: int = 3) -> list:
     """The GPU activities (kernels, memsets, copies) of ``iters`` calls,
-    from a CUPTI trace, in start order."""
+    from a CUPTI trace, in start order.  A trace that comes back empty is
+    taken again, up to ``attempts`` times in all (the profiler now and then
+    returns no device events for a short trace); an empty result is
+    returned only if every attempt was empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sorted(ops, key=lambda e: e.time_range.start)
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            return sorted(ops, key=lambda e: e.time_range.start)
+        print(f"timing: trace {attempt} of {attempts} held no device activity")
+    return []
 
 
 def device_time(torch, fn, *, warmup: int = 10, iters: int = 60) -> tuple[float, list]:
     """Device time (ms) of one call: the summed durations of the GPU work
     each call enqueues, from a CUPTI trace, so host overhead does not count.
     The median over calls when the trace splits into equal per-call groups,
-    else the mean (total / calls).  Also returns one call's op names."""
+    else the mean over the calls the trace holds (a trace may drop the first
+    op).  Also returns one call's op names."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -115,8 +138,11 @@ def device_time(torch, fn, *, warmup: int = 10, iters: int = 60) -> tuple[float,
     check(bool(ops), "the CUPTI trace holds no device activity")
     per = len(ops) // iters
     if per * iters != len(ops):
-        print(f"timing: trace held {len(ops)} device ops for {iters} calls; using the mean")
-        return sum(e.time_range.elapsed_us() for e in ops) / iters / 1e3, []
+        # the trace lost (or split) an op: average over the calls it holds
+        calls = len(ops) / max(1, round(len(ops) / iters))
+        print(f"timing: trace held {len(ops)} device ops for {iters} calls; "
+              f"using the mean over {calls:g} calls")
+        return sum(e.time_range.elapsed_us() for e in ops) / calls / 1e3, []
     sums = [sum(e.time_range.elapsed_us() for e in ops[i * per:(i + 1) * per])
             for i in range(iters)]
     return statistics.median(sums) / 1e3, [e.name[:60] for e in ops[:per]]
@@ -260,18 +286,23 @@ def kernel_phase(torch, dev, gpu_line):
         return ms, plain_ms, lib_ms
 
     def int_mm_library(args, kw):
+        """``torch._int_mm`` takes M > 16 and K, N multiples of 8: x is
+        zero-padded to 32 rows (and K, N to multiples of 8), which leaves
+        the product's first M x N values exact; then the same epilogue."""
         x, w, xs, ws, b = args
+        m, k = x.shape
+        n = w.shape[1]
+        mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+        xp = torch.zeros((mp, kp), dtype=torch.int8, device=x.device)
+        wp = torch.zeros((kp, np_), dtype=torch.int8, device=w.device)
+        xp[:m, :k], wp[:k, :n] = x, w
 
         def call():
-            y = torch._int_mm(x, w).float() * xs * ws + b
+            y = torch._int_mm(xp, wp)[:m, :n].float() * xs * ws + b
             return torch.relu(y) if kw["act"] == "relu" else y
 
-        try:
-            call()
-        except RuntimeError as exc:  # shape constraints of _int_mm (M > 16, ...)
-            print(f"library torch._int_mm not applicable at {tuple(x.shape)}x{tuple(w.shape)}: "
-                  f"{str(exc).splitlines()[0]}")
-            return None
+        print(f"library torch._int_mm at {tuple(x.shape)}x{tuple(w.shape)} padded to "
+              f"({mp}, {kp})x({kp}, {np_})")
         return time_ms(torch, call)
 
     k1_ms, k1_plain, k1_lib = per_forward(k1_main, quant_matmul, quant_matmul_plain, int_mm_library)
@@ -327,7 +358,268 @@ def kernel_phase(torch, dev, gpu_line):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: MonitorEngine in the two canonical cells
+# phase 2b: kernel K3b (all seven CORDIC modes) and the front-end primitives
+# ---------------------------------------------------------------------------
+
+#: source-level operations per value of each K3b mode, counted from
+#: csrc/cordic_act.cu and csrc/cordic.cuh (the 20 CORDIC stages are 6 each:
+#: two shifts, a sign test and three adds)
+K3B_OPS_PER_VALUE = {"tanh": 138, "sigmoid": 141, "exp": 151, "swish": 142,
+                     "gelu": 144, "selu": 157, "relu": 1}
+#: the edges of the CORDIC unit: tanh's +-4.4 saturation and the value just
+#: inside it, beyond the +-30 exp clip, signed zeros, tiny and huge values
+K3B_EDGES = [4.4, -4.4, 4.3999996, -4.3999996, 30.5, -30.5, 80.0, -80.0,
+             -0.0, 0.0, 1e-30, -1e-30, 1e4, -1e4]
+
+
+def cordic_phase(torch, np, dev, gpu_line):
+    """K3b against ``apply_mode`` (bitwise) at the sweep's, ragged and edge
+    inputs, and each mode's time beside its plain version, the nearest
+    PyTorch call and its bound at 4096 x 128."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cordic_act import MODES, apply_mode, cordic_activation
+
+    rng = np.random.default_rng(SEED)
+    sweep = torch.from_numpy(rng.uniform(-4, 4, (4096, 128)).astype(np.float32)).to(dev)
+    inputs = [sweep, torch.tensor(K3B_EDGES, dtype=torch.float32, device=dev)]
+    inputs += [torch.from_numpy(rng.uniform(-6, 6, shape).astype(np.float32)).to(dev)
+               for shape in ((1,), (33,), (1000,), (3, 5, 7))]
+    err = 0.0
+    for mode in MODES:
+        for x in inputs:
+            got = cordic_activation(x, mode)
+            torch.cuda.synchronize()
+            want = apply_mode(x, mode)
+            ok = bitwise(torch, got, want)
+            err = max(err, max_abs(torch, got, want))
+            check(ok, f"cordic_activation[{mode}] disagrees with apply_mode at {tuple(x.shape)}")
+        print(f"kernel_check cordic_activation[{mode}] shapes={[tuple(x.shape) for x in inputs]} "
+              f"bitwise=True")
+    library = {"tanh": torch.tanh, "sigmoid": torch.sigmoid, "exp": torch.exp, "swish": F.silu,
+               "gelu": lambda v: F.gelu(v, approximate="tanh"), "selu": F.selu, "relu": torch.relu}
+    for mode in MODES:
+        t_k, k_ops = device_time(torch, lambda: cordic_activation(sweep, mode))
+        t_p, p_ops = device_time(torch, lambda: apply_mode(sweep, mode), iters=20)
+        t_l = time_ms(torch, lambda: library[mode](sweep))
+        b_ms, b_by = bound_ms(8 * sweep.numel(), K3B_OPS_PER_VALUE[mode] * sweep.numel(),
+                              FP32_OPS_PER_S)
+        print("kernel_time " + json.dumps({
+            "kernel": "cordic_activation", "mode": mode, "shape": list(sweep.shape), "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+            "kernel_ops": k_ops, "plain_ops": len(p_ops), "gpu": gpu_line,
+        }))
+    return err
+
+
+def frontend_primitive_phase(torch, np, dev, gpu_line):
+    """The fixed-order projection and row sum against their plain versions
+    (bitwise) at the mfcc20 front-end's shapes for 8 windows, timed beside
+    ``torch.matmul`` / ``torch.sum``."""
+    from repro_torch.kernels.frontend import project_rows, project_rows_plain, row_sum, row_sum_plain
+
+    rng = np.random.default_rng(SEED + 1)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    # one 8-window mfcc20 block: the mel and DCT projections, and every row sum
+    proj_cases = [(rand(408, 513).abs(), rand(513, 64).abs()), (rand(408, 64), rand(64, 20))]
+    sum_cases = [rand(*s) for s in ((4104, 12), (512, 51), (80, 51), (8, 128), (8, 128),
+                                    (8, 128), (8, 1096), (8, 1096))]
+    err = 0.0
+    for x, m in proj_cases + [(rand(5, 1), rand(1, 7)), (rand(3, 700), rand(700, 33))]:
+        got = project_rows(x, m)
+        torch.cuda.synchronize()
+        want = project_rows_plain(x, m)
+        err = max(err, max_abs(torch, got, want))
+        check(bitwise(torch, got, want), f"project_rows disagrees at {tuple(x.shape)}x{tuple(m.shape)}")
+    for x in sum_cases + [rand(3, 1), rand(2, 65), rand(1, 32 * 1024)]:
+        got = row_sum(x)
+        torch.cuda.synchronize()
+        want = row_sum_plain(x)
+        err = max(err, max_abs(torch, got, want))
+        check(bitwise(torch, got, want), f"row_sum disagrees at {tuple(x.shape)}")
+    print("kernel_check project_rows, row_sum at the mfcc20 block shapes and ragged ones: bitwise=True")
+
+    def timed(cases, kernel, plain, library, cost):
+        ms = plain_ms = lib_ms = 0.0
+        bytes_moved = ops = 0
+        for args in cases:
+            ms += time_ms(torch, lambda: kernel(*args))
+            plain_ms += time_ms(torch, lambda: plain(*args), iters=10)
+            lib_ms += time_ms(torch, lambda: library(*args))
+            b, o = cost(*args)
+            bytes_moved, ops = bytes_moved + b, ops + o
+        b_ms, b_by = bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
+        line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print("kernel_time " + json.dumps({"kernel": kernel.__name__, "per": "mfcc20 block of 8",
+                                           **line, "gpu": gpu_line}))
+        return line
+
+    p_line = timed(proj_cases, project_rows, project_rows_plain, torch.matmul,
+                   lambda x, m: (4 * (x.numel() + m.numel() + x.shape[0] * m.shape[1]),
+                                 2 * x.shape[0] * x.shape[1] * m.shape[1]))
+    s_line = timed([(x,) for x in sum_cases], row_sum, row_sum_plain, lambda x: x.sum(dim=1),
+                   lambda x: (4 * (x.numel() + x.shape[0]), x.numel()))
+    common = dict(route="cuda", source="src/repro_torch/csrc/frontend_rows.cu", replaces=None,
+                  max_abs_err=err)
+    return {
+        "project_rows": dict(name="project_rows", **common, **p_line),
+        "row_sum": dict(name="row_sum", **common, **s_line),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the im2col sign-off layer (K1 at M = B*L, then K3b)
+# ---------------------------------------------------------------------------
+
+SIGNOFF_LAYERS = {"conv0": (1096, 1, 64), "conv1": (548, 64, 128), "conv2": (274, 128, 256)}
+SIGNOFF_ATOL = 1e-5
+
+
+def signoff_phase(torch, np, dev, gpu_line):
+    """``cordic_activation(conv1d_q(x, w, b), "relu")`` at each canonical
+    conv layer (B = 8) on the card: the main path of K3b, and K1 at
+    M = B*L.  Returns the launches of that path and K3b's numbers there."""
+    from repro_torch.core.quantization import int8_symmetric
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_fused_q
+    from repro_torch.kernels.cordic_act import apply_mode, cordic_activation
+    from repro_torch.kernels.ops import _im2col, conv1d_q
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    rng = np.random.default_rng(SEED + 2)
+    layers = {}
+    for name, (l, cin, cout) in SIGNOFF_LAYERS.items():
+        x = np.abs(rng.standard_normal((8, l, cin))).astype(np.float32) * 2
+        w = (rng.standard_normal((3, cin, cout)) * np.sqrt(2 / (3 * cin))).astype(np.float32)
+        b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+        layers[name] = [torch.from_numpy(a) for a in (x, w, b)]
+
+    def layer(x, w, b):
+        return cordic_activation(conv1d_q(x, w, b), "relu")
+
+    counters = (quant_matmul, cordic_activation)
+    for k in counters:
+        k.launches = 0
+    outs = {name: layer(*(a.to(dev) for a in args)) for name, args in layers.items()}
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    want = {"quant_matmul": len(layers), "cordic_activation": len(layers)}
+    check(launches == want, f"sign-off layer launches {launches} != {want}")
+
+    relu_in = {}
+    for name, (x, w, b) in layers.items():
+        xd, wd, bd = x.to(dev), w.to(dev), b.to(dev)
+        cpu = layer(x, w, b)
+        check(bitwise(torch, outs[name].cpu(), cpu),
+              f"{name}: sign-off layer on the card differs from the CPU")
+        # the fused conv: the same int8 payloads give the same int32 accumulators
+        k, cin, cout = w.shape
+        xq, wq = int8_symmetric(xd, axis=None), int8_symmetric(wd, axis=2)
+        acc_f = conv1d_fused_q(xq.q, wq.q, xq.scale, wq.scale, return_acc=True)
+        acc_i = quant_matmul(_im2col(xq.q, k), wq.q.reshape(k * cin, cout),
+                             xq.scale.reshape(1, 1), wq.scale.reshape(1, -1), return_acc=True)
+        check(bitwise(torch, acc_f, acc_i.reshape(acc_f.shape)),
+              f"{name}: fused and im2col int32 accumulators differ")
+        fused = conv1d_fused(xd, wd, bd, act="relu")
+        dev_err = max_abs(torch, fused, outs[name])
+        ok = torch.allclose(fused, outs[name], rtol=SIGNOFF_ATOL, atol=SIGNOFF_ATOL)
+        check(ok, f"{name}: fused conv vs sign-off layer max |d| {dev_err}")
+        relu_in[name] = conv1d_q(xd, wd, bd)
+        print(f"signoff {name} B=8 L={x.shape[1]} M={8 * x.shape[1]} K={k * cin} N={cout}: "
+              f"card == cpu bitwise, accumulators == fused bitwise, "
+              f"|fused - im2col| {dev_err} <= {SIGNOFF_ATOL}")
+
+    # K3b on its main path: relu over the three layers' outputs
+    ms = plain_ms = lib_ms = 0.0
+    n_values = 0
+    err = 0.0
+    for v in relu_in.values():
+        ms += time_ms(torch, lambda: cordic_activation(v, "relu"))
+        plain_ms += time_ms(torch, lambda: apply_mode(v, "relu"))
+        lib_ms += time_ms(torch, lambda: torch.relu(v))
+        err = max(err, max_abs(torch, cordic_activation(v, "relu"), apply_mode(v, "relu")))
+        n_values += v.numel()
+    b_ms, b_by = bound_ms(8 * n_values, K3B_OPS_PER_VALUE["relu"] * n_values, FP32_OPS_PER_S)
+    print("kernel_time " + json.dumps({
+        "kernel": "cordic_activation", "mode": "relu", "per": "three sign-off layers",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "gpu": gpu_line,
+    }))
+    entry = dict(name="cordic_activation", route="cuda", source="src/repro_torch/csrc/cordic_act.cu",
+                 replaces="src/repro/kernels/cordic_act.py:132", max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return launches, entry
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the on-device front-end
+# ---------------------------------------------------------------------------
+
+
+def scene_windows(np, n: int, seed: int):
+    """``n`` seeded 0.8 s windows from the port's scene synthesisers: UAV
+    and background in turn, each at an SNR in [8, 20] dB."""
+    from repro_torch.data import acoustic
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        x = acoustic.synth_uav(rng) if i % 2 == 0 else acoustic.synth_background(rng)
+        rows.append(acoustic.add_noise_snr(x, float(rng.uniform(8, 20)), rng))
+    return np.stack(rows).astype(np.float32)
+
+
+def frontend_phase(torch, np, dev, gpu_line):
+    """``feature_rows`` on the card for every kind: parity with the numpy
+    oracle and bitwise row independence; then which library hazards the
+    card shows on the same shapes."""
+    from repro_torch.data import features
+    from repro_torch.data.features_torch import PARITY_ATOL, feature_rows
+
+    w = scene_windows(np, 8, SEED + 3)
+    x = torch.from_numpy(w).to(dev)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(8)).to(dev)
+    padded = torch.cat([x[:3], torch.zeros((5, x.shape[1]), device=dev)])
+    for kind in sorted(features.FEATURE_DIMS):
+        full = feature_rows(x, kind)
+        oracle = features.batch_features(w, kind)
+        dev_max = float(np.abs(full.cpu().numpy() - oracle).max())
+        check(dev_max <= PARITY_ATOL[kind], f"{kind}: card features {dev_max} from numpy")
+        same = [bitwise(torch, full[perm], feature_rows(x[perm], kind)),
+                bitwise(torch, full[:3], feature_rows(padded, kind)[:3])]
+        for size in (1, 3):
+            same += [bitwise(torch, full[i:i + size], feature_rows(x[i:i + size], kind))
+                     for i in range(0, 8 - size + 1, size)]
+        check(all(same), f"{kind}: a row's features depend on its co-batch on the card")
+        print(f"frontend {kind}: max |card - numpy| {dev_max} <= {PARITY_ATOL[kind]}; rows "
+              f"bitwise independent of batch size 1/3/8, permutation and silence padding")
+
+    # the hazards the fixed-order primitives and per-window FFTs avoid:
+    # does a row's result change with its co-batch if the library does it?
+    rng = np.random.default_rng(SEED + 4)
+    p = torch.from_numpy(np.abs(rng.standard_normal((8, 51, 513))).astype(np.float32)).to(dev)
+    mel = torch.from_numpy(np.abs(rng.standard_normal((513, 64))).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((8, 1096)).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.standard_normal((8, 51, 1024)).astype(np.float32)).to(dev)
+    batched_mm = (p.reshape(-1, 513) @ mel).reshape(8, 51, 64)
+    batched_fft = torch.view_as_real(torch.fft.rfft(f, dim=-1))
+    hazards = {
+        "a_cublas_projection": any(not bitwise(torch, batched_mm[i], p[i] @ mel) for i in range(8)),
+        "b_torch_reductions": any(
+            not bitwise(torch, red(v)[i:i + 1], red(v[i:i + 1]))
+            for red in (lambda t: t.mean(dim=1), lambda t: t.sum(dim=1), lambda t: t.std(dim=1))
+            for i in range(8)),
+        "c_cufft_batch_count": any(
+            not bitwise(torch, batched_fft[i], torch.view_as_real(torch.fft.rfft(f[i], dim=-1)))
+            for i in range(8)),
+    }
+    print("frontend_hazards " + json.dumps({**hazards, "gpu": gpu_line}))
+    return hazards
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving cells
 # ---------------------------------------------------------------------------
 
 
@@ -458,6 +750,7 @@ def engine_phase(torch, np, dev, gpu_line):
         t0 = time.perf_counter()
         ops = device_ops(torch, lambda: serve(traced, audio, chunks), iters=1)
         traced_wall = time.perf_counter() - t0
+        check(bool(ops), f"{cell}: the CUPTI trace of a serving run holds no device activity")
         busy = sum(e.time_range.elapsed_us() for e in ops) / 1e6 / traced_wall
 
         cpu_scores, cpu_events, _, _ = serve(engines["cpu"], audio, chunks)
@@ -488,6 +781,112 @@ def engine_phase(torch, np, dev, gpu_line):
     return launches
 
 
+def ondevice_phase(torch, np, dev, gpu_line):
+    """The ``int8_ondevice`` cell through the driver: the canonical mfcc20
+    detector baked with its front-end, served from raw windows on the card
+    and on the CPU.  Returns the launches of the card's run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.data import features
+    from repro_torch.data.features_torch import PARITY_ATOL, feature_rows
+    from repro_torch.kernels.conv1d_fused import conv1d_fused_q
+    from repro_torch.kernels.cordic_act import cordic_softmax
+    from repro_torch.kernels.frontend import project_rows, row_sum
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.launch import monitor
+    from repro_torch.models import cnn1d
+    from repro_torch.serving.accelerator import accelerator_forward
+    from repro_torch.serving.quantized_params import load_artifact, quantize_params, save_artifact
+
+    cfg = cnn1d.CANONICAL
+    params = cnn1d.init_params(cfg, torch.Generator().manual_seed(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "detector_int8_ondevice.npz"
+        save_artifact(path, quantize_params(params, cfg, feature_kind="mfcc20", device="cpu"))
+        argv = ["--artifact", str(path), "--device-features", "--streams", str(N_STREAMS),
+                "--duration", str(SECONDS), "--slots", str(SLOTS), "--seed", str(SEED)]
+
+        def drive(device):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                run = monitor.main([*argv, "--device", device])
+            summary = [ln for ln in log.getvalue().splitlines() if "windows/s" in ln]
+            print(f"driver[{device}] {summary[0].strip() if summary else '(no summary)'}")
+            return run
+
+        kernels = (quant_matmul, conv1d_fused_q, cordic_softmax, project_rows, row_sum)
+        drive("cuda")  # warm-up: first-touch allocations and FFT plans
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        run = drive("cuda")
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels}
+        qp = run.engine.artifact
+        blocks = run.engine.forward_calls
+        want = {"quant_matmul": 2 * blocks, "conv1d_fused_q": 3 * blocks,
+                "cordic_softmax": blocks, "project_rows": 2 * blocks, "row_sum": 8 * blocks}
+        print(f"engine_launches cell=int8_ondevice blocks={blocks} counts={counts} expected={want}")
+        check(counts == want, f"int8_ondevice: kernel launches {counts} != {want}")
+        n_windows = N_STREAMS * int(SECONDS / features.WINDOW_S)
+        check(len(run.scores) == n_windows,
+              f"int8_ondevice: {len(run.scores)} windows scored, want {n_windows}")
+
+        # every window at once through the raw-window forward: the same bits
+        wins = np.concatenate([s.reshape(-1, features.N_SAMPLES) for s in run.scenes])
+        raw = torch.from_numpy(wins).to(dev)
+        probs = accelerator_forward(qp, raw, cfg, device=dev, raw_windows=True).cpu().numpy()
+        check(np.isfinite(probs).all(), "int8_ondevice: non-finite probabilities")
+        row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+        check(row_err <= 1e-6, f"int8_ondevice: rows sum to 1 only within {row_err}")
+        order = sorted(run.scores, key=lambda w: (w.stream, w.window_idx))
+        check(np.array_equal(probs[:, 1].astype(np.float64), [w.p_uav for w in order]),
+              "int8_ondevice: batched raw-window forward differs from the streamed scores")
+
+        # the card against the CPU: features within tolerance, scores compared
+        feat_card = feature_rows(raw, "mfcc20").cpu().numpy()
+        feat_cpu = feature_rows(torch.from_numpy(wins), "mfcc20").numpy()
+        feat_dev = float(np.abs(feat_card - feat_cpu).max())
+        check(feat_dev <= PARITY_ATOL["mfcc20"],
+              f"int8_ondevice: card vs CPU features {feat_dev} > {PARITY_ATOL['mfcc20']}")
+        cpu_run = drive("cpu")
+        got = sorted(run.scores, key=lambda w: (w.stream, w.window_idx))
+        ref = sorted(cpu_run.scores, key=lambda w: (w.stream, w.window_idx))
+        check([(a.stream, a.window_idx) for a in got] == [(b.stream, b.window_idx) for b in ref],
+              "int8_ondevice: card and CPU scored different windows")
+        dp = max(abs(a.p_uav - b.p_uav) for a, b in zip(got, ref))
+        agree = float(np.mean([(a.p_uav > 0.5) == (b.p_uav > 0.5) for a, b in zip(got, ref)]))
+
+        # where a round's time goes: the front-end and the whole forward on
+        # the device, and the card's busy share over a traced driver run
+        block = raw[:SLOTS]
+        fe_dev = time_ms(torch, lambda: feature_rows(block, "mfcc20"))
+        fwd_dev = time_ms(torch, lambda: accelerator_forward(qp, block, cfg, device=dev,
+                                                             raw_windows=True))
+        fwd_call = call_ms(torch, lambda: accelerator_forward(qp, block, cfg, device=dev,
+                                                              raw_windows=True), iters=20)
+        t0 = time.perf_counter()
+        ops = device_ops(torch, lambda: drive("cuda"), iters=1)
+        traced_wall = time.perf_counter() - t0
+        check(bool(ops), "int8_ondevice: the CUPTI trace of a driver run holds no device activity")
+        busy = sum(e.time_range.elapsed_us() for e in ops) / 1e6 / traced_wall
+    print("engine " + json.dumps({
+        "cell": "int8_ondevice", "flatten": cfg.flatten_size, "via": "repro_torch.launch.monitor",
+        "windows": len(run.scores), "blocks": blocks,
+        "windows_per_s": len(run.scores) / run.seconds,
+        "round_p50_ms": statistics.median(run.round_seconds) * 1e3,
+        "rounds": len(run.round_seconds), "events": sum(len(e) for e in run.events),
+        "max_abs_dp_vs_cpu": dp, "decision_agreement_vs_cpu": agree,
+        "max_abs_feature_dev_vs_cpu": feat_dev, "row_sum_err": row_err,
+        "frontend_device_ms_per_block": fe_dev, "forward_device_ms_per_block": fwd_dev,
+        "forward_call_ms_per_block": fwd_call, "device_busy_share": busy,
+        "device_ops_per_run": len(ops), "gpu": gpu_line,
+    }))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -511,10 +910,24 @@ def main() -> int:
         print(f"build_seconds {time.perf_counter() - t0:.1f} (nvcc {backend.build_seconds:.1f})")
         dev = torch.device("cuda")
         kernels = kernel_phase(torch, dev, gpu_line)
-        launches = engine_phase(torch, np, dev, gpu_line)
-        for name, count in launches.items():
-            check(count > 0, f"kernel {name} was never launched on the main path")
-            kernels[name]["launches"] = count
+        k3b_err = cordic_phase(torch, np, dev, gpu_line)
+        kernels.update(frontend_primitive_phase(torch, np, dev, gpu_line))
+        launches: dict[str, int] = {}
+
+        def add(counts):
+            for name, c in counts.items():
+                launches[name] = launches.get(name, 0) + c
+
+        signoff_launches, kernels["cordic_activation"] = signoff_phase(torch, np, dev, gpu_line)
+        kernels["cordic_activation"]["max_abs_err"] = max(
+            k3b_err, kernels["cordic_activation"]["max_abs_err"])
+        add(signoff_launches)
+        frontend_phase(torch, np, dev, gpu_line)
+        add(engine_phase(torch, np, dev, gpu_line))
+        add(ondevice_phase(torch, np, dev, gpu_line))
+        for name in kernels:
+            check(launches.get(name, 0) > 0, f"kernel {name} was never launched on the main path")
+            kernels[name]["launches"] = launches[name]
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         print(json.dumps({"kernels": [{k: v[k] for k in keys} for v in kernels.values()]}))

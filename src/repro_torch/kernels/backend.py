@@ -8,12 +8,14 @@ Pallas interpreter off the TPU; here the device of the tensor decides:
 * a CUDA tensor goes to the hand-written kernel, or the call raises.  No
   path falls back from the card to the plain version.
 
-The kernels (``csrc/*.cu``) are compiled on first use by one ``nvcc`` call
-into a shared library with a plain C interface, under ``build/repro_torch/``
-at the root of the checkout, and loaded with ``ctypes``.  The library name
-carries a hash of the sources, so an edited kernel is never served from a
-stale build.  Every C entry point returns ``cudaGetLastError()`` after its
-launches; :func:`check` turns a non-zero code into an exception.
+The kernels (``csrc/*.cu``, which include the shared headers
+``csrc/*.cuh``) are compiled on first use, one ``nvcc`` per source, all
+started together, and linked into one shared library with a plain C
+interface under ``build/repro_torch/`` at the root of the checkout, loaded
+with ``ctypes``.  The library name carries a hash of every source and
+header, so an edited kernel or header is never served from a stale build.
+Every C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ NVCC_FLAGS = (
     # no contraction of a*b+c into an FMA: the epilogues and the CORDIC
     # range reduction must round each multiply and add like the reference
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -58,6 +60,12 @@ SIGNATURES = {
     ),
     # x, out, rows, cols, stream
     "cordic_softmax_f32": (_P, _P, _I, _I, _P),
+    # x, out, n, mode, stream
+    "cordic_activation_f32": (_P, _P, _I, _I, _P),
+    # x, m, out, R, K, N, stream
+    "project_rows_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # x, out, R, n, stream
+    "row_sum_f32": (_P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -121,23 +129,44 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the kernel library unless the current
-    sources are already built; returns the library path."""
+    sources are already built; returns the library path.  Each source is
+    compiled by its own ``nvcc`` process, all running at once, then the
+    objects are linked."""
     global build_seconds
     out = library_path()
     if out.exists():
         build_seconds = 0.0
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -9,9 +9,9 @@ numbers, not merely the maths.
   CUDA tensor it launches kernel K3 (``csrc/cordic_softmax.cu``, one warp
   per row); on a CPU tensor it runs :func:`cordic_softmax_plain`.
 * :func:`cordic_activation` is the elementwise unit for all seven modes.
-  Its plain version is complete; the elementwise CUDA kernel for the modes
-  other than the softmax's ``exp`` is ROADMAP item K3b, so a CUDA tensor
-  raises ``NotImplementedError`` there.
+  On a CUDA tensor it launches kernel K3b (``csrc/cordic_act.cu``, one
+  thread per value); on a CPU tensor it runs :func:`apply_mode`.  Both
+  share the CORDIC device code (``csrc/cordic.cuh``) with K3.
 
 Three details carry the reference's bits (its CPU numerics, which the
 golden artifacts pin): ``jnp.exp2(k)`` is ``exp(ln2 * k)`` with XLA's
@@ -121,19 +121,34 @@ def apply_mode(v: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
-    """Elementwise CORDIC activation of an fp32 tensor (plain PyTorch).
+    """Elementwise CORDIC activation of a tensor of any shape, cast to fp32.
 
-    The elementwise CUDA kernel is ROADMAP K3b; until it exists a CUDA
-    tensor raises rather than running this plain version on the card.
-    """
+    A CUDA tensor goes through kernel K3b, a CPU tensor through the plain
+    :func:`apply_mode`; both give the reference's bits (NaN inputs are
+    defined only for ``relu``, which passes them through)."""
     if mode not in MODES:
         raise ValueError(f"unknown CORDIC mode {mode!r}")
-    if backend.on_card(x):
-        raise NotImplementedError(
-            "the elementwise CORDIC kernel is ROADMAP K3b; on the card only "
-            "cordic_softmax (kernel K3) is ported"
-        )
-    return apply_mode(x.to(torch.float32), mode)
+    x = x.to(torch.float32)
+    if not backend.on_card(x):
+        return apply_mode(x, mode)
+    flat = x.contiguous().reshape(-1)
+    if flat.numel() >= 2**31:
+        raise ValueError(f"{flat.numel()} values exceed one launch")
+    out = torch.empty_like(flat)
+    if flat.numel():
+        lib = backend.library()
+        with torch.cuda.device(x.device):
+            err = lib.cordic_activation_f32(
+                flat.data_ptr(), out.data_ptr(), flat.numel(), MODES.index(mode),
+                backend.stream_ptr(x),
+            )
+        backend.check(err, "cordic_activation_f32")
+        cordic_activation.launches += 1
+    return out.reshape(x.shape)
+
+
+#: kernel K3b launches since the counter was last set to 0
+cordic_activation.launches = 0
 
 
 def cordic_softmax_plain(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,149 @@
+"""The DSP front-end's per-row primitives, with batch-independent bits.
+
+No TPU kernel stands behind this module: the reference computes its
+front-end (``repro/data/features_jax.py``) with XLA's own ops and runs the
+two projections under ``jax.lax.map`` so that their bits cannot depend on
+the batch.  On the card three library paths would break that contract:
+cuBLAS picks its kernel by shape, PyTorch's reductions split a row's sum
+according to the whole tensor's shape, and cuFFT plans depend on the batch
+count.  The port therefore fixes the order of every sum itself:
+
+* :func:`project_rows` (``(R, K) @ (K, N)``) sums over ``k`` in ascending
+  order, each product and each sum rounded on its own;
+* :func:`row_sum` sums each row in the window order of the reference's CPU
+  compiler (rows of up to 32 values left to right; longer rows in
+  ``ceil(n / 32)`` equal windows, reduced again by the same rule), which
+  gives the reference's bits wherever a row's length is at most 64 or a
+  multiple of 32 (the normalisation of the zcr, psd and mel128 rows).
+
+On a CUDA tensor each launches its kernel (``csrc/frontend_rows.cu``); on a
+CPU tensor it runs its plain version, which is elementwise PyTorch in the
+same order and therefore the same bits on either device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import backend
+
+#: rows the CUDA row_sum takes are at most this long (1,024 first windows)
+MAX_ROW = 32 * 1024
+
+
+def window_width(n: int) -> int:
+    """Width of the windows a row of ``n`` values is cut into."""
+    if n <= 32:
+        return n
+    k = -(-n // 32)
+    return -(-n // k)
+
+
+def _check_2d(x: torch.Tensor, name: str) -> None:
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"{name}: 2-D float32 expected, got {x.dtype} {tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# projection
+# ---------------------------------------------------------------------------
+
+
+def project_rows_plain(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`project_rows`: ``acc += x[:, k] * m[k]`` for
+    ascending ``k``, starting from 0."""
+    _check_2d(x, "x")
+    _check_2d(m, "m")
+    acc = torch.zeros((x.shape[0], m.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k : k + 1] * m[k : k + 1, :]
+    return acc
+
+
+def project_rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``(R, K) @ (K, N)`` fp32 with a fixed summation order per output."""
+    _check_2d(x, "x")
+    _check_2d(m, "m")
+    if x.shape[1] != m.shape[0]:
+        raise ValueError(f"(R, K) x (K, N) expected, got {tuple(x.shape)} x {tuple(m.shape)}")
+    if not backend.on_card(x, m):
+        return project_rows_plain(x, m)
+    x, m = x.contiguous(), m.contiguous()
+    r, k = x.shape
+    n = m.shape[1]
+    out = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    if r and n:
+        lib = backend.library()
+        with torch.cuda.device(x.device):
+            err = lib.project_rows_f32(
+                x.data_ptr(), m.data_ptr(), out.data_ptr(), r, k, n, backend.stream_ptr(x)
+            )
+        backend.check(err, "project_rows_f32")
+        project_rows.launches += 1
+    return out
+
+
+#: project_rows kernel launches since the counter was last set to 0
+project_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row sums
+# ---------------------------------------------------------------------------
+
+
+def row_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`row_sum`: each window summed left to right from
+    0 (the last one zero-padded), level after level."""
+    _check_2d(x, "x")
+    if x.shape[1] == 0:
+        raise ValueError("row_sum needs rows of at least one value")
+    while True:
+        rows, n = x.shape
+        w = window_width(n)
+        windows = -(-n // w)
+        if windows * w != n:
+            x = torch.cat([x, x.new_zeros((rows, windows * w - n))], dim=1)
+        parts = x.reshape(rows, windows, w)
+        acc = torch.zeros((rows, windows), dtype=torch.float32, device=x.device)
+        for i in range(w):
+            acc = acc + parts[:, :, i]
+        if windows == 1:
+            return acc[:, 0]
+        x = acc
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``(R, n)`` fp32 -> ``(R,)`` row sums in the reference's window order."""
+    _check_2d(x, "x")
+    if not backend.on_card(x):
+        return row_sum_plain(x)
+    r, n = x.shape
+    if not 0 < n <= MAX_ROW:
+        raise ValueError(f"row_sum takes rows of 1..{MAX_ROW} values, got {n}")
+    x = x.contiguous()
+    out = torch.empty((r,), dtype=torch.float32, device=x.device)
+    if r:
+        lib = backend.library()
+        with torch.cuda.device(x.device):
+            err = lib.row_sum_f32(x.data_ptr(), out.data_ptr(), r, n, backend.stream_ptr(x))
+        backend.check(err, "row_sum_f32")
+        row_sum.launches += 1
+    return out
+
+
+#: row_sum kernel launches since the counter was last set to 0
+row_sum.launches = 0
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis of ``(..., n)``: the row sum times
+    ``float32(1 / n)``, which is how the reference's compiler evaluates a
+    division by the constant ``n``."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    return (row_sum(x.reshape(-1, n)) * inv_f32(n)).reshape(lead)
+
+
+def inv_f32(n: int) -> float:
+    """``float32(1) / float32(n)``, correctly rounded in float32."""
+    return float(np.float32(1.0) / np.float32(n))

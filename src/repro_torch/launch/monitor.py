@@ -1,0 +1,345 @@
+"""Multi-stream continuous-monitoring driver of the port —
+``python -m repro_torch.launch.monitor --streams 4 --duration 30 --artifact PATH.npz``.
+
+Counterpart of ``repro/launch/monitor.py``.  Simulates N always-on
+microphones: each stream is a synthetic acoustic scene (background clutter
+with one UAV pass over a random interval), delivered to the
+:class:`~repro_torch.serving.engine.MonitorEngine` in uneven chunks that
+never align with window boundaries.  The engine windows each stream,
+scores ready windows in micro-batches on the kernel datapath, and the
+vectorised tracker's per-stream detection events are printed against the
+known ground-truth pass.  Scenes, chunk schedule, printed lines and the
+final summary are the reference driver's, draw for draw.
+
+Two things differ from the reference driver:
+
+* **No in-process training.**  The reference trains a small detector
+  (``quick_detector``) or loads its cached canonical one (``--trained``);
+  both need the detector trainer, ROADMAP M9.  Here ``--artifact PATH.npz``
+  serves a baked artifact written by either package (``save_artifact``),
+  and ``--random`` serves seeded random weights (``torch.Generator``, so
+  not the reference's values).  Without either the driver exits naming
+  M9.  ``--prune``/``--policy`` are baking decisions: with ``--artifact``
+  they are an error, as in ``MonitorEngine``.
+* **``--device {cuda,cpu}``**, CUDA by default: PyTorch needs the device
+  named, where JAX picks it itself.  Without a GPU, ``cuda`` fails.
+
+The fleet flags (``--workers``, ``--faults``, ``--lanes``, ``--autoscale``,
+``--state-dir``, ``--fsync``, ``--checkpoint-interval``) and ``--shards``
+are accepted and exit naming ROADMAP M7 and M8.  :func:`main` returns a
+:class:`MonitorRun` (engine, scores, events, scenes, timings) instead of
+the events alone.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.data import acoustic, features
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import cnn1d
+from repro_torch.serving.engine import MonitorEngine, WindowScore
+from repro_torch.serving.quantized_params import QuantizedParams, load_artifact
+from repro_torch.serving.tracker import TrackEvent
+
+SMALL_CFG = dict(channels=(4, 8), hidden=8)
+
+#: fleet-supervisor flags: (flag, dest) -> ROADMAP M7
+FLEET_FLAGS = (
+    ("--workers", "workers"), ("--faults", "faults"), ("--lanes", "lanes"),
+    ("--autoscale", "autoscale"), ("--state-dir", "state_dir"),
+    ("--fsync", "fsync"), ("--checkpoint-interval", "checkpoint_interval"),
+)
+
+
+def synth_scene(seconds: float, rng: np.random.Generator):
+    """One stream's audio: background everywhere except one UAV pass.
+
+    Returns (samples, (t_on, t_off)) with the pass interval in seconds.
+    """
+    n_win = max(1, int(seconds / features.WINDOW_S))
+    if n_win >= 6:
+        on = int(rng.integers(1, n_win - 4))
+        off = int(min(n_win - 1, on + rng.integers(3, max(4, n_win // 2))))
+    else:
+        on, off = 0, n_win  # short scene: all UAV
+    wins = []
+    for i in range(n_win):
+        x = acoustic.synth_uav(rng) if on <= i < off else acoustic.synth_background(rng)
+        wins.append(acoustic.add_noise_snr(x, float(rng.uniform(8, 20)), rng))
+    return np.concatenate(wins), (on * features.WINDOW_S, off * features.WINDOW_S)
+
+
+def delivery_schedule(scenes, rng: np.random.Generator) -> list[list[tuple[int, int, int]]]:
+    """Uneven chunk deliveries, one engine round per entry: one chunk-size
+    draw per stream per round, finished streams included (the reference's
+    draw order), as ``(stream, lo, hi)`` slices."""
+    schedule = []
+    cursors = [0] * len(scenes)
+    while any(c < len(s) for c, s in zip(cursors, scenes)):
+        round_pushes = []
+        for s in range(len(scenes)):
+            chunk = int(rng.uniform(0.3, 1.7) * features.N_SAMPLES)
+            if cursors[s] < len(scenes[s]):
+                round_pushes.append((s, cursors[s], cursors[s] + chunk))
+                cursors[s] += chunk
+        schedule.append(round_pushes)
+    return schedule
+
+
+def config_for_artifact(qp: QuantizedParams, feature_kind: str) -> cnn1d.CNNConfig:
+    """The model configuration an artifact serves for ``feature_kind``
+    inputs (channels, taps and widths read from its layers)."""
+    channels = tuple(int(layer["b"].numel()) for layer in qp.convs)
+    cfg = cnn1d.CNNConfig(
+        input_len=features.FEATURE_DIMS[feature_kind],
+        channels=channels,
+        kernel=int(qp.convs[0]["w"].shape[0]),
+        hidden=int(qp.denses[0]["b"].numel()),
+        n_classes=int(qp.denses[1]["b"].numel()),
+    )
+    frames = qp.keep_frames if qp.keep_frames is not None else cfg.n_frames
+    flatten = int(qp.denses[0]["w"].shape[0])
+    if frames * channels[-1] != flatten:
+        raise SystemExit(
+            f"monitor: the artifact's dense0 takes {flatten} inputs, but "
+            f"{feature_kind} features ({cfg.input_len} values) flatten to "
+            f"{frames * channels[-1]}; pass the --feature it was trained on"
+        )
+    return cfg
+
+
+@dataclasses.dataclass
+class MonitorRun:
+    """What one driver run served."""
+
+    engine: MonitorEngine
+    scores: list[WindowScore]
+    events: list[list[TrackEvent]]
+    scenes: list[np.ndarray]
+    truths: list[tuple[float, float]]
+    seconds: float  # wall time of the serving loop
+    round_seconds: list[float]  # wall time of each step() that scored windows
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--streams", type=int, default=4)
+    ap.add_argument("--duration", "--seconds", type=float, default=16.0,
+                    dest="duration", help="seconds per stream")
+    ap.add_argument("--precision", choices=("int8", "fxp8"), default="int8")
+    ap.add_argument("--prune", type=int, default=None, metavar="KEEP",
+                    help="bake a structured channel prune into the served "
+                         "artifact: keep this many output channels of the "
+                         "last conv block (+1 boundary-frame trim, paper "
+                         "SIII-C)")
+    ap.add_argument("--policy", default=None, metavar="SPEC",
+                    help="bake a per-layer precision policy into the served "
+                         "artifact: a PrecisionPolicy JSON file/string, or "
+                         "inline 'conv0/w=bf16,dense1/w=fp32' rules "
+                         "(default mode = --precision)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sharded-batch dispatch over several GPUs (ROADMAP M8)")
+    ap.add_argument("--feature", default=None, choices=sorted(features.FEATURE_DIMS),
+                    help="feature set (default: the artifact's baked kind, else psd)")
+    ap.add_argument("--device-features", action="store_true",
+                    help="run the DSP front-end on the device (the engine "
+                         "submits raw windows; no host feature extraction on "
+                         "the serving path)")
+    ap.add_argument("--slots", type=int, default=8, help="micro-batch slot count")
+    ap.add_argument("--adaptive-slots", action="store_true",
+                    help="grow/shrink micro-batch blocks over a power-of-two "
+                         "slot ladder to fit the ready backlog instead of "
+                         "padding dead slots with silence (bitwise-identical "
+                         "scores; every shape is warmed up front)")
+    ap.add_argument("--max-streams", type=int, default=None, metavar="N",
+                    help="admit at most N distinct streams (first come, "
+                         "first served); chunks for later streams are "
+                         "refused and counted, never scored")
+    ap.add_argument("--workers", type=int, default=None, metavar="N",
+                    help="fault-tolerant fleet supervisor (ROADMAP M7)")
+    ap.add_argument("--faults", default=None, metavar="PLAN.json",
+                    help="fault-plan injection through the fleet (ROADMAP M7)")
+    ap.add_argument("--lanes", choices=("threads",), default=None,
+                    help="concurrent fleet execution lanes (ROADMAP M7)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="SLO autoscaler over the fleet (ROADMAP M7)")
+    ap.add_argument("--state-dir", default=None, metavar="DIR",
+                    help="durable fleet state (ROADMAP M7)")
+    ap.add_argument("--fsync", choices=("always", "interval", "never"), default=None,
+                    help="WAL fsync policy with --state-dir (ROADMAP M7)")
+    ap.add_argument("--checkpoint-interval", type=int, default=None, metavar="R",
+                    help="checkpoint interval with --state-dir (ROADMAP M7)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--random", action="store_true",
+                    help="seeded random-init weights (plumbing smoke, no real detections)")
+    ap.add_argument("--artifact", default=None, metavar="PATH.npz",
+                    help="serve a baked artifact (save_artifact of either package)")
+    ap.add_argument("--trained", action="store_true",
+                    help="the reference's trained detector (needs the trainer, ROADMAP M9)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return ap
+
+
+def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine:
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as exc:
+        raise SystemExit(f"monitor: {exc}") from exc
+    prune_spec = policy = None
+    if args.artifact is not None:
+        if args.prune is not None or args.policy is not None:
+            ap.error("--prune/--policy are baking decisions and cannot be applied "
+                     "to a baked --artifact")
+        params = load_artifact(args.artifact, device=dev)
+        if args.feature is None:
+            args.feature = params.feature_kind or "psd"
+        cfg = config_for_artifact(params, args.feature)
+        print(f"monitor: serving artifact {args.artifact} "
+              f"({params.mode}, flatten {int(params.denses[0]['w'].shape[0])})")
+    else:
+        if args.feature is None:
+            args.feature = "psd"
+        cfg = cnn1d.CNNConfig(input_len=features.FEATURE_DIMS[args.feature], **SMALL_CFG)
+        params = cnn1d.init_params(cfg, torch.Generator().manual_seed(args.seed))
+        print("monitor: --random weights; probabilities are meaningless")
+        # Deploy-time decisions baked into the served artifact (quantise-once).
+        if args.prune is not None:
+            from repro_torch.core.pruning import plan_prune
+
+            last = len(cfg.channels) - 1
+            prune_spec = plan_prune(
+                params[f"conv{last}"]["w"], cfg.n_frames, keep=args.prune, trim_frames=1,
+            )
+            print(
+                f"monitor: pruned artifact — flatten {prune_spec.flatten_before} "
+                f"-> {prune_spec.flatten_after} (-{prune_spec.reduction:.0%})"
+            )
+        if args.policy is not None:
+            from repro_torch.core.precision_policy import PrecisionPolicy
+
+            policy = PrecisionPolicy.parse(args.policy, default=args.precision)
+            modes = {pat: prec.value for pat, prec in sorted(policy.rules.items())}
+            print(f"monitor: mixed-precision artifact — {modes}, "
+                  f"default {policy.default.value}")
+
+    admission = None
+    if args.max_streams is not None:
+        from repro_torch.serving.batching import AdmissionPolicy
+
+        admission = AdmissionPolicy(max_streams=args.max_streams)
+        print(f"monitor: admission cap {args.max_streams} stream(s)")
+    try:
+        return MonitorEngine(
+            params, cfg,
+            n_streams=args.streams,
+            feature_kind=args.feature,
+            on_device_features=args.device_features,
+            batch_slots=args.slots,
+            precision=args.precision,
+            prune=prune_spec,
+            policy=policy,
+            adaptive_slots=args.adaptive_slots,
+            admission=admission,
+            device=dev,
+        )
+    except ValueError as exc:
+        raise SystemExit(f"monitor: {exc}") from exc
+
+
+def main(argv=None) -> MonitorRun:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    fleet = [flag for flag, dest in FLEET_FLAGS if getattr(args, dest) not in (None, False)]
+    if fleet:
+        raise SystemExit(
+            f"monitor: {', '.join(fleet)} drive the fleet supervisor, which the "
+            f"port does not have yet (ROADMAP M7)"
+        )
+    if args.shards is not None:
+        raise SystemExit("monitor: --shards (sharded dispatch over several GPUs) is ROADMAP M8")
+    if args.trained or (args.artifact is None and not args.random):
+        raise SystemExit(
+            "monitor: the port cannot train or load the reference's trained "
+            "detector yet (detector training is ROADMAP M9); serve a baked "
+            "artifact with --artifact PATH.npz, or seeded weights with --random"
+        )
+
+    engine = _build_engine(args, ap)
+    if args.adaptive_slots:
+        ladder = engine.precompile()
+        print(f"monitor: adaptive slots, warmed ladder {list(ladder)}")
+    if args.device_features:
+        print(f"monitor: on-device {args.feature} front-end (raw-window dispatch)")
+
+    rng = np.random.default_rng(args.seed + 1)
+    scenes, truths = zip(*(synth_scene(args.duration, rng) for _ in range(args.streams)))
+    schedule = delivery_schedule(scenes, rng)
+
+    def show(scored):
+        for ws in scored:
+            flag = "TRACK" if ws.active else ""
+            print(
+                f"  stream {ws.stream} t={ws.window_idx * features.WINDOW_S:5.1f}s "
+                f"p={ws.p_uav:.2f} ema={ws.smoothed:.2f} {flag}"
+            )
+
+    scores: list[WindowScore] = []
+    rounds: list[float] = []
+
+    def step() -> list[WindowScore]:
+        t_round = time.perf_counter()
+        got = engine.step()
+        if got:
+            rounds.append(time.perf_counter() - t_round)
+        scores.extend(got)
+        show(got)
+        return got
+
+    t0 = time.perf_counter()
+    for round_pushes in schedule:
+        for s, lo, hi in round_pushes:
+            engine.push(s, scenes[s][lo:hi])
+        step()
+    while step():  # backlogged windows: delivery outpaces 1/round
+        pass
+    dt = time.perf_counter() - t0
+    events = engine.finalize()
+
+    print(
+        f"\nmonitor: {args.streams} stream(s) x {args.duration:.1f}s "
+        f"({engine.windows_scored} windows) in {dt:.2f}s "
+        f"-> {engine.windows_scored / dt:.1f} windows/s, "
+        f"{engine.forward_calls} forward calls, "
+        f"{engine.padded_slots} padded slots, "
+        f"{engine.dropped_samples} dropped samples"
+    )
+    if args.adaptive_slots:
+        hist = ", ".join(f"{k}x{v}" for k, v in sorted(engine.slot_histogram.items()))
+        print(f"monitor: slot histogram {hist or '(no blocks)'}")
+    if args.max_streams is not None:
+        refused = engine.refused_chunks
+        n_refused = int(np.count_nonzero(refused))
+        print(f"monitor: {n_refused} stream(s) refused at admission, "
+              f"{int(refused.sum())} chunk(s) dropped")
+    for s, (evs, (t_on, t_off)) in enumerate(zip(events, truths)):
+        print(f"stream {s}: ground truth UAV at {t_on:.1f}-{t_off:.1f}s, {len(evs)} event(s)")
+        for e in evs:
+            print(
+                f"    onset={e.onset_idx * features.WINDOW_S:.1f}s "
+                f"offset={e.offset_idx * features.WINDOW_S:.1f}s "
+                f"peak={e.peak_score:.2f} mean={e.mean_score:.2f}"
+            )
+    return MonitorRun(
+        engine=engine, scores=scores, events=events, scenes=list(scenes),
+        truths=list(truths), seconds=dt, round_seconds=rounds,
+    )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

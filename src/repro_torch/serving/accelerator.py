@@ -13,6 +13,13 @@ kernels, bf16 layers compute on bf16-rounded operands widened to fp32
 pruned artifact's ``keep_frames`` trims frames between the last pool and the
 flatten, which keeps the reference's ``(frames, channels)`` row-major order.
 
+With ``raw_windows=True`` the forward starts at raw ``(B, 12800)`` audio
+windows: the artifact's baked front-end
+(:func:`repro_torch.data.features_torch.feature_rows`) runs on the device
+ahead of the first layer.  Its bits are per row, so streaming == batched
+still holds; against host-extracted features it agrees within the
+front-end's ``PARITY_ATOL``, not bitwise.
+
 On ``device="cuda"`` (the default) every kernel runs on the card; on
 ``device="cpu"`` the kernels' plain PyTorch versions run.  Without a GPU a
 CUDA request raises.
@@ -26,6 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.f32_math import relu
 from repro_torch.core.quantization import bf16_round, fxp8_quantize, int8_symmetric
+from repro_torch.data.features import N_SAMPLES
+from repro_torch.data.features_torch import feature_rows
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q
 from repro_torch.kernels.cordic_act import cordic_softmax
@@ -69,9 +78,15 @@ def _conv1d_float(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def forward_quantized(
-    qp: QuantizedParams, x: torch.Tensor, per_sample_acts: bool = True
+    qp: QuantizedParams,
+    x: torch.Tensor,
+    per_sample_acts: bool = True,
+    raw_windows: bool = False,
 ) -> torch.Tensor:
-    """(B, M) features on the artifact's device -> (B, n_classes) probabilities."""
+    """(B, M) features (or, with ``raw_windows``, (B, 12800) raw windows) on
+    the artifact's device -> (B, n_classes) probabilities."""
+    if raw_windows:
+        x = feature_rows(x, qp.feature_kind)
     act_axis = 0 if per_sample_acts else None
     bsz = x.shape[0]
     conv_modes, dense_modes = qp.layer_modes
@@ -115,6 +130,26 @@ def forward_quantized(
     return cordic_softmax(h)
 
 
+def _check_raw_windows(qp: QuantizedParams, x: torch.Tensor, feature_kind: str | None):
+    """The raw-window contract, checked before any work is queued."""
+    if qp.feature_kind is None:
+        raise ValueError(
+            "raw_windows=True needs an artifact with a baked feature kind; "
+            "re-bake with quantize_params(..., feature_kind=...) or pass "
+            "feature_kind= alongside the fp32 checkpoint"
+        )
+    if feature_kind is not None and feature_kind != qp.feature_kind:
+        raise ValueError(
+            f"artifact was baked for feature kind {qp.feature_kind!r}, "
+            f"got feature_kind={feature_kind!r}"
+        )
+    if x.ndim != 2 or x.shape[1] != N_SAMPLES:
+        raise ValueError(
+            f"raw_windows=True expects (B, {N_SAMPLES}) raw "
+            f"0.8 s windows, got {tuple(x.shape)}"
+        )
+
+
 def accelerator_forward(
     params: dict | QuantizedParams,
     x,
@@ -124,20 +159,19 @@ def accelerator_forward(
     fxp: bool = False,
     per_sample_acts: bool = True,
     raw_windows: bool = False,
+    feature_kind: str | None = None,
 ) -> torch.Tensor:
     """x: (B, M) features -> (B, n_classes) class probabilities on
     ``device``, computed on the kernel datapath.
 
     Pass a :class:`QuantizedParams` artifact on ``device`` to serve from the
     weight cache (no weight quantisation per call); a raw fp32 ``params``
-    dict is baked on the fly (``fxp`` picks the mode) for one-off sign-offs.
-    ``per_sample_acts=False`` quantises activations with one per-tensor
-    scale (the legacy A/B surface of the reference).
+    dict is baked on the fly (``fxp`` picks the mode, ``feature_kind`` the
+    front-end) for one-off sign-offs.  ``per_sample_acts=False`` quantises
+    activations with one per-tensor scale (the legacy A/B surface of the
+    reference).  ``raw_windows=True`` takes raw (B, 12800) 0.8 s windows and
+    runs the artifact's baked front-end first.
     """
-    if raw_windows:
-        raise NotImplementedError(
-            "raw_windows=True needs the on-device DSP front-end, ROADMAP M4"
-        )
     dev = resolve_device(device)
     if isinstance(params, QuantizedParams):
         qp = params
@@ -147,11 +181,16 @@ def accelerator_forward(
                 f"for {dev}; load or bake it with device={dev.type!r}"
             )
     else:
-        qp = quantize_params(params, cfg, mode="fxp8" if fxp else "int8", device=dev)
+        qp = quantize_params(
+            params, cfg, mode="fxp8" if fxp else "int8", feature_kind=feature_kind,
+            device=dev,
+        )
     x = torch.as_tensor(x)
-    if x.ndim != 2:
+    if raw_windows:
+        _check_raw_windows(qp, x, feature_kind)
+    elif x.ndim != 2:
         raise ValueError(f"(B, M) feature rows expected, got {tuple(x.shape)}")
-    return forward_quantized(qp, x.to(qp.device), per_sample_acts)
+    return forward_quantized(qp, x.to(qp.device), per_sample_acts, raw_windows)
 
 
 def accelerator_forward_sharded(*args, **kwargs):
@@ -165,21 +204,24 @@ def precompile_slot_shapes(
     slot_counts,
     *,
     row_width: int | None = None,
+    raw_windows: bool = False,
 ) -> None:
     """Warm the datapath once per batch (slot) shape of the ladder: the
     first call builds and loads the kernel library, and each shape's first
     call pays its allocator and launch set-up outside a serving round.
-    Zeros are the engine's silence padding, so there is no NaN hazard."""
+    Zeros are the engine's silence padding, so there is no NaN hazard.
+    Rows are ``N_SAMPLES`` raw samples wide with ``raw_windows``, else
+    ``cfg.input_len`` features."""
     if not isinstance(qp, QuantizedParams):
         raise TypeError(
             f"precompile_slot_shapes needs a baked QuantizedParams artifact, "
             f"got {type(qp).__name__}"
         )
     if row_width is None:
-        row_width = cfg.input_len
+        row_width = N_SAMPLES if raw_windows else cfg.input_len
     for slots in sorted(set(int(s) for s in slot_counts)):
         x = torch.zeros((slots, row_width), dtype=torch.float32, device=qp.device)
-        accelerator_forward(qp, x, cfg, device=qp.device).cpu()
+        accelerator_forward(qp, x, cfg, device=qp.device, raw_windows=raw_windows).cpu()
 
 
 __all__ = [

@@ -20,9 +20,14 @@ rewrite the host block on its next turn), the forward is enqueued without
 waiting, and harvest is ``.cpu().numpy()`` of the result, which waits for
 it.  Up to ``inflight`` blocks are in flight at once.
 
+``on_device_features=True`` moves the DSP front-end onto the device: the
+engine submits raw ``(slots, 12800)`` window blocks and the artifact's
+baked front-end runs ahead of the first layer, so no host feature work
+sits in a round.  Its features agree with the host front-end within
+``features_torch.PARITY_ATOL``; streaming == batched stays bitwise.
+
 Left for later slices, each raising ``NotImplementedError``: sharded
-dispatch (``shards``/``mesh``, ROADMAP M8), the on-device front-end
-(``on_device_features=True``, M4) and the byte codec of snapshots
+dispatch (``shards``/``mesh``, ROADMAP M8) and the byte codec of snapshots
 (``snapshot_bytes``, M7).
 """
 from __future__ import annotations
@@ -236,6 +241,8 @@ class MonitorEngine:
     :class:`QuantizedParams` on another device is moved once, here.
     ``prune``/``policy`` bake a structured prune and a per-layer precision
     policy into the served artifact at construction.
+    ``on_device_features=True`` submits raw windows; the artifact then
+    carries ``feature_kind`` (baked here, or checked on a pre-baked one).
     """
 
     def __init__(
@@ -267,8 +274,6 @@ class MonitorEngine:
     ):
         if shards is not None or mesh is not None:
             raise NotImplementedError("sharded dispatch (shards/mesh) is ROADMAP M8")
-        if on_device_features:
-            raise NotImplementedError("on_device_features=True is ROADMAP M4")
         if feature_kind not in features.FEATURE_DIMS:
             raise ValueError(f"unknown feature kind {feature_kind!r}")
         if cfg.input_len != features.FEATURE_DIMS[feature_kind]:
@@ -286,10 +291,13 @@ class MonitorEngine:
         self.cfg = cfg
         self.n_streams = n_streams
         self.feature_kind = feature_kind
+        self.on_device_features = on_device_features
         self.batch_slots = batch_slots
         self.window = features.N_SAMPLES
         self.hop = hop_samples if hop_samples is not None else features.N_SAMPLES
-        self._in_width = cfg.input_len
+        # one micro-batch row: raw samples when the front-end runs on the
+        # device, extracted features otherwise
+        self._in_width = features.N_SAMPLES if on_device_features else cfg.input_len
         if isinstance(params, QuantizedParams):
             if prune is not None or policy is not None:
                 raise ValueError(
@@ -297,10 +305,18 @@ class MonitorEngine:
                     "applied to an already-baked QuantizedParams artifact; "
                     "pass the fp32 checkpoint instead"
                 )
+            if on_device_features and params.feature_kind != feature_kind:
+                raise ValueError(
+                    f"on_device_features=True needs an artifact baked for "
+                    f"feature kind {feature_kind!r}, got "
+                    f"{params.feature_kind!r}; re-bake with "
+                    f"quantize_params(..., feature_kind={feature_kind!r})"
+                )
             self._qp = params if params.device.type == self.device.type else params.to(self.device)
         else:
             self._qp = quantize_params(
                 params, cfg, mode=precision, prune=prune, policy=policy,
+                feature_kind=feature_kind if on_device_features else None,
                 device=self.device,
             )
         self._rings = [
@@ -436,7 +452,9 @@ class MonitorEngine:
     def _submit(self, block: np.ndarray) -> torch.Tensor:
         """Dispatch one slot block; returns the (possibly in-flight) result."""
         x = torch.from_numpy(block).to(self.device)
-        return accelerator_forward(self._qp, x, self.cfg, device=self.device)
+        return accelerator_forward(
+            self._qp, x, self.cfg, device=self.device, raw_windows=self.on_device_features
+        )
 
     def _submit_rows(self, rows, slots: int) -> torch.Tensor:
         return self._submit(self._pool.pack(rows, slots))
@@ -447,7 +465,8 @@ class MonitorEngine:
     def precompile(self) -> tuple[int, ...]:
         """Warm the datapath once per dispatchable slot shape; returns the ladder."""
         precompile_slot_shapes(
-            self._qp, self.cfg, self.slot_policy.ladder, row_width=self._in_width
+            self._qp, self.cfg, self.slot_policy.ladder, row_width=self._in_width,
+            raw_windows=self.on_device_features,
         )
         return self.slot_policy.ladder
 
@@ -465,7 +484,10 @@ class MonitorEngine:
         np.cumsum(alloc[:-1], out=offs[1:])
         wins = [self._rings[s].peek_windows(int(k)) for s, k in zip(cand, alloc) if k]
         stacked = np.concatenate(wins, axis=0)
-        rows = features.batch_features(stacked, self.feature_kind)
+        if self.on_device_features:
+            rows = stacked  # raw windows; the front-end runs on the device
+        else:
+            rows = features.batch_features(stacked, self.feature_kind)
         p_uav = self._forward(rows)[:, 1]  # may raise: nothing committed yet
         # Tracker rounds go depth by depth so each stream's probabilities
         # reach its EMA in push order.

@@ -62,8 +62,8 @@ class QuantizedParams:
     conv_modes: tuple[str, ...] | None = None
     dense_modes: tuple[str, ...] | None = None
     keep_frames: int | None = None
-    #: the DSP front-end the model was trained on (raw-window serving is
-    #: ROADMAP M4; the tag is carried so artifacts round-trip)
+    #: the DSP front-end baked in for raw-window serving (``None``: the
+    #: artifact takes feature rows only)
     feature_kind: str | None = None
 
     @property

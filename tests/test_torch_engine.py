@@ -3,9 +3,11 @@ streaming contracts.
 
 On a seeded ``synth_scene`` delivered in uneven chunks, the port's
 ``WindowScore``s and finalized ``TrackEvent``s equal the reference's
-exactly for int8 and fxp8 artifacts.  Inside the port, streaming ==
-batched == adaptive-slot, ``step()`` is transactional under a raising
-``fault_hook``, and snapshot/restore resumes bitwise.
+exactly for int8 and fxp8 artifacts, and with the front-end on the device
+(``on_device_features=True``) as well.  Inside the port, streaming ==
+batched == adaptive-slot (with host or on-device features), ``step()`` is
+transactional under a raising ``fault_hook``, and snapshot/restore resumes
+bitwise.
 """
 import dataclasses
 
@@ -91,6 +93,49 @@ def test_engine_equals_reference_engine(detector, scene, mode):
     assert sum(len(e) for e in t_events) > 0
     assert (teng.windows_scored, teng.rounds, teng.forward_calls, teng.padded_slots) == \
         (jeng.windows_scored, jeng.rounds, jeng.forward_calls, jeng.padded_slots)
+
+
+def test_on_device_engine_equals_reference_engine(detector, scene):
+    cfg, np_params, tcfg, tparams = detector
+    audio, chunks = scene
+    jart = jqp.quantize_params(jax.tree.map(jax.numpy.asarray, np_params), cfg,
+                               feature_kind="zcr")
+    jeng = JEngine(jart, cfg, n_streams=N_STREAMS, feature_kind="zcr", on_device_features=True,
+                   batch_slots=2, interpret=True, **TRACK_KW)
+    teng = MonitorEngine(tparams, tcfg, n_streams=N_STREAMS, feature_kind="zcr",
+                         on_device_features=True, batch_slots=2, device="cpu", **TRACK_KW)
+    assert teng.artifact.feature_kind == "zcr"
+    j_scores, j_events = _run(jeng, audio, chunks)
+    t_scores, t_events = _run(teng, audio, chunks)
+    assert len(t_scores) == N_STREAMS * 5
+    assert [a[:2] for a in _as_tuples(t_scores)] == [b[:2] for b in _as_tuples(j_scores)]
+    np.testing.assert_allclose([ws.p_uav for ws in t_scores], [ws.p_uav for ws in j_scores],
+                               rtol=0, atol=1e-6)
+    assert [[(e.onset_idx, e.offset_idx) for e in evs] for evs in t_events] == \
+        [[(e.onset_idx, e.offset_idx) for e in evs] for evs in j_events]
+    assert sum(len(e) for e in t_events) > 0
+
+
+def test_on_device_streaming_equals_batched_equals_adaptive(detector, scene):
+    _, _, tcfg, tparams = detector
+    audio, chunks = scene
+    qp = quantize_params(tparams, tcfg, device="cpu", feature_kind="zcr")
+    kw = dict(n_streams=N_STREAMS, feature_kind="zcr", on_device_features=True, device="cpu",
+              **TRACK_KW)
+    fixed, fixed_events = _run(MonitorEngine(qp, tcfg, batch_slots=2, **kw), audio, chunks)
+    adaptive_eng = MonitorEngine(qp, tcfg, batch_slots=4, adaptive_slots=True, **kw)
+    assert adaptive_eng.precompile() == (1, 2, 4)
+    adaptive, adaptive_events = _run(adaptive_eng, audio, chunks)
+    assert _as_tuples(adaptive) == _as_tuples(fixed) and adaptive_events == fixed_events
+    n_win = audio.shape[1] // features.N_SAMPLES
+    for s in range(N_STREAMS):
+        wins = audio[s].reshape(n_win, features.N_SAMPLES)
+        probs = accelerator_forward(qp, wins, tcfg, device="cpu", raw_windows=True).numpy()[:, 1]
+        got = [ws.p_uav for ws in fixed if ws.stream == s]
+        np.testing.assert_array_equal(np.asarray(got), probs.astype(np.float64))
+        assert fixed_events[s] == track_stream(probs, **TRACK_KW)
+    with pytest.raises(ValueError, match="baked for feature kind 'zcr', got None"):
+        MonitorEngine(quantize_params(tparams, tcfg, device="cpu"), tcfg, batch_slots=2, **kw)
 
 
 def test_streaming_equals_batched_equals_adaptive(detector, scene):
@@ -211,8 +256,7 @@ def test_ring_sanitize_and_validation(detector):
         eng.push(2, bad)
     with pytest.raises(ValueError, match="feature dim"):
         MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="mfcc20", device="cpu")
-    for kw, road in ((dict(shards=2), "M8"), (dict(on_device_features=True), "M4")):
-        with pytest.raises(NotImplementedError, match=road):
-            MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="zcr", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="M8"):
+        MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="zcr", device="cpu", shards=2)
     with pytest.raises(NotImplementedError, match="M7"):
         eng.snapshot_bytes()

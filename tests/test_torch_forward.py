@@ -1,6 +1,8 @@
 """The port's kernel-datapath forward against the JAX reference.
 
-The golden artifacts replay bitwise, ``detector_pruned_mixed`` included.
+The golden artifacts replay bitwise, ``detector_pruned_mixed`` included,
+and ``detector_int8_ondevice`` through the raw-window forward (the port's
+zcr front-end gives the reference's bits).
 Forwards from the same fp32 params match the reference bitwise in the
 int8, fxp8 and pruned+mixed cells: at these widths PyTorch's CPU conv and
 matmul sum the bf16/fp32 layers in the reference's order (the card's
@@ -20,12 +22,13 @@ import numpy as np  # noqa: E402
 
 from repro.core.precision_policy import PrecisionPolicy as JPolicy  # noqa: E402
 from repro.core.pruning import plan_prune as j_plan  # noqa: E402
-from repro.data.features import FEATURE_DIMS  # noqa: E402
+from repro.data.features import FEATURE_DIMS, N_SAMPLES  # noqa: E402
 from repro.models import cnn1d as jcnn  # noqa: E402
 from repro.serving import quantized_params as jqp  # noqa: E402
 from repro.serving.accelerator import accelerator_forward as j_forward  # noqa: E402
 from repro_torch.core.precision_policy import PrecisionPolicy  # noqa: E402
 from repro_torch.core.pruning import plan_prune  # noqa: E402
+from repro_torch.data.features_torch import feature_rows  # noqa: E402
 from repro_torch.models import cnn1d as tcnn  # noqa: E402
 from repro_torch.serving import accelerator as tacc  # noqa: E402
 from repro_torch.serving.quantized_params import load_artifact, quantize_params  # noqa: E402
@@ -48,16 +51,18 @@ def _inputs(rows=8, width=SMALL["input_len"], seed=1234):
     return x * (10.0 ** rng.uniform(-2, 2, size=(rows, 1))).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["int8", "pruned_mixed"])
+@pytest.mark.parametrize("name", ["int8", "pruned_mixed", "int8_ondevice"])
 def test_golden_artifacts_replay_bitwise(name):
-    x = np.load(GOLDEN / "input.npy")
+    raw = name == "int8_ondevice"
+    x = np.load(GOLDEN / ("input_windows.npy" if raw else "input.npy"))
     qp = load_artifact(GOLDEN / f"detector_{name}.npz", device="cpu")
-    cfg = tcnn.CNNConfig(input_len=x.shape[1], channels=(4, 8), hidden=8)
-    got = tacc.accelerator_forward(qp, x, cfg, device="cpu")
+    assert qp.feature_kind == ("zcr" if raw else None)
+    cfg = tcnn.CNNConfig(input_len=FEATURE_DIMS["zcr"], channels=(4, 8), hidden=8)
+    got = tacc.accelerator_forward(qp, x, cfg, device="cpu", raw_windows=raw)
     assert _bits_equal(np.load(GOLDEN / f"expected_{name}.npy"), got.numpy())
 
 
-def _bake_both(cell, seed=7, channels=(4, 8), hidden=8):
+def _bake_both(cell, seed=7, channels=(4, 8), hidden=8, feature_kind=None):
     jcfg = jcnn.CNNConfig(input_len=SMALL["input_len"], channels=channels, hidden=hidden)
     tcfg = tcnn.CNNConfig(input_len=SMALL["input_len"], channels=channels, hidden=hidden)
     np_params = jax.tree.map(np.asarray, jcnn.init_params(jax.random.PRNGKey(seed), jcfg))
@@ -74,8 +79,8 @@ def _bake_both(cell, seed=7, channels=(4, 8), hidden=8):
     else:
         jkw, tkw, mode = {}, {}, cell
     return (
-        jcfg, jqp.quantize_params(jp, jcfg, mode=mode, **jkw),
-        tcfg, quantize_params(tp, tcfg, mode=mode, device="cpu", **tkw),
+        jcfg, jqp.quantize_params(jp, jcfg, mode=mode, feature_kind=feature_kind, **jkw),
+        tcfg, quantize_params(tp, tcfg, mode=mode, device="cpu", feature_kind=feature_kind, **tkw),
     )
 
 
@@ -126,11 +131,50 @@ def test_rows_independent_of_co_batch(cell):
     assert _bits_equal(full[:3], got[:3]) and np.isfinite(got).all()
 
 
+def _raw_windows(rows, seed=21):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((rows, N_SAMPLES)).astype(np.float32)
+    return w * (10.0 ** rng.uniform(-2, 2, size=(rows, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("cell", ["int8", "pruned_mixed"])
+def test_raw_window_forward_vs_reference(cell):
+    """The raw-window forward equals the reference's on the same artifact
+    (zcr front-end: the same bits), and equals the forward of its own
+    front-end's feature rows."""
+    jcfg, jart, tcfg, tart = _bake_both(cell, feature_kind="zcr")
+    w = _raw_windows(5)
+    want = j_forward(jart, jnp.asarray(w), jcfg, interpret=True, raw_windows=True)
+    got = tacc.accelerator_forward(tart, w, tcfg, device="cpu", raw_windows=True).numpy()
+    assert _bits_equal(want, got)
+    rows = feature_rows(torch.from_numpy(w), "zcr")
+    assert _bits_equal(got, tacc.accelerator_forward(tart, rows, tcfg, device="cpu").numpy())
+    tacc.precompile_slot_shapes(tart, tcfg, (1, 2), raw_windows=True)
+
+
+def test_raw_window_contract_errors():
+    _, _, tcfg, plain = _bake_both("int8")
+    _, _, _, baked = _bake_both("int8", feature_kind="zcr")
+    w = _raw_windows(2)
+    with pytest.raises(ValueError, match="baked feature kind"):
+        tacc.accelerator_forward(plain, w, tcfg, device="cpu", raw_windows=True)
+    with pytest.raises(ValueError, match="baked for feature kind 'zcr'"):
+        tacc.accelerator_forward(baked, w, tcfg, device="cpu", raw_windows=True,
+                                 feature_kind="psd")
+    with pytest.raises(ValueError, match=f"expects \\(B, {N_SAMPLES}\\)"):
+        tacc.accelerator_forward(baked, w[:, :100], tcfg, device="cpu", raw_windows=True)
+    # an fp32 checkpoint is baked on the fly with the given front-end
+    np_params = jax.tree.map(np.asarray, jcnn.init_params(jax.random.PRNGKey(7), jcnn.CNNConfig(
+        input_len=SMALL["input_len"], channels=(4, 8), hidden=8)))
+    got = tacc.accelerator_forward(tcnn.params_from_numpy(np_params), w, tcfg, device="cpu",
+                                   raw_windows=True, feature_kind="zcr")
+    assert _bits_equal(got.numpy(), tacc.accelerator_forward(baked, w, tcfg, device="cpu",
+                                                             raw_windows=True).numpy())
+
+
 def test_unported_paths_raise():
     _, _, tcfg, tart = _bake_both("int8")
     x = _inputs(rows=2)
-    with pytest.raises(NotImplementedError, match="M4"):
-        tacc.accelerator_forward(tart, x, tcfg, device="cpu", raw_windows=True)
     with pytest.raises(NotImplementedError, match="M8"):
         tacc.accelerator_forward_sharded(tart, x, tcfg)
     with pytest.raises(ValueError, match="feature rows"):

@@ -1,11 +1,13 @@
-"""Port kernels K1-K3 against the JAX Pallas kernels, bitwise.
+"""Port kernels K1-K3b against the JAX Pallas kernels, bitwise.
 
 On the CPU every port kernel wrapper runs its plain PyTorch version; each
 is held bitwise against the reference kernel (Pallas, interpret mode) on
 the int32 accumulators and on the fp32 outputs, over ragged shapes, K in
 {1, 3, 5}, Cin = 1, per-tensor and per-sample scales, with and without
-bias, ReLU and clip.  ``test_torch_kernels_gpu.py`` holds the CUDA kernels
-against these plain versions on the card.
+bias, ReLU and clip; the CORDIC unit in all seven modes, at its edge
+values, and behind the im2col sign-off conv layer.
+``test_torch_kernels_gpu.py`` holds the CUDA kernels against these plain
+versions on the card.
 """
 import re
 from pathlib import Path
@@ -217,10 +219,59 @@ def test_cordic_softmax_other_axis():
     assert _bits_equal(want, got.numpy())
 
 
+#: the edges of the CORDIC unit: the tanh saturation at +-4.4 and the value
+#: just inside it, beyond the +-30 clip of the exp argument, signed zeros,
+#: tiny and huge magnitudes
+EDGES = np.array([
+    4.4, -4.4, np.nextafter(np.float32(4.4), 0), -np.nextafter(np.float32(4.4), 0),
+    30.0, -30.0, 30.5, -30.5, 80.0, -80.0, -0.0, 0.0, 1e-30, -1e-30, 1e4, -1e4,
+    2.2, -2.2, 8.8, -8.8,
+], np.float32)
+
+
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_activation_edge_values_bitwise(mode):
+    want = jcordic.cordic_activation(jnp.asarray(EDGES), mode, interpret=True)
+    got = tcordic.cordic_activation(torch.from_numpy(EDGES), mode)
+    assert _bits_equal(want, got.numpy())
+
+
+def test_cordic_activation_any_shape():
+    """Any shape and dtype in, fp32 of the same shape out; empty is empty."""
+    x = np.random.default_rng(4).uniform(-6, 6, (3, 5, 7)).astype(np.float32)
+    want = jcordic.cordic_activation(jnp.asarray(x), "gelu", interpret=True)
+    got = tcordic.cordic_activation(torch.from_numpy(x.astype(np.float64)), "gelu")
+    assert got.dtype == torch.float32 and _bits_equal(want, got.numpy())
+    assert tcordic.cordic_activation(torch.zeros((0, 4)), "selu").shape == (0, 4)
+    relu = tcordic.cordic_activation(torch.tensor([float("nan"), -0.0, -1.0, 2.0]), "relu")
+    assert torch.isnan(relu[0]) and relu[1:].tolist() == [0.0, 0.0, 2.0]
+    assert not np.signbit(relu[1].numpy())
+    with pytest.raises(ValueError, match="unknown CORDIC mode"):
+        tcordic.cordic_activation(torch.zeros(2), "softplus")
+
+
+@pytest.mark.parametrize("fxp", [False, True])
+def test_im2col_signoff_layer_bitwise_vs_reference(fxp):
+    """``cordic_activation(conv1d_q(x, w, b), "relu")``, the layer the fused
+    conv is signed off against, at a narrow width of each canonical conv."""
+    rng = np.random.default_rng(12)
+    for cin, cout in ((1, 8), (8, 16)):
+        x = (rng.standard_normal((2, 37, cin)) * 3).astype(np.float32)
+        w = (rng.standard_normal((3, cin, cout)) * 0.3).astype(np.float32)
+        b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+        want = jcordic.cordic_activation(jops.conv1d_q(*_j(x, w, b), fxp=fxp, interpret=True),
+                                         "relu", interpret=True)
+        got = tcordic.cordic_activation(tops.conv1d_q(*_t(x, w, b), fxp=fxp), "relu")
+        assert _bits_equal(want, got.numpy())
+
+
 def test_cuda_source_constants_match_python():
-    """The CUDA CORDIC hard-codes the iteration schedule, the atanh table and
-    the pre-scaled start value; they must equal the Python ones."""
-    src = (CSRC / "cordic_softmax.cu").read_text()
+    """The CUDA CORDIC (``cordic.cuh``, shared by K3 and K3b) hard-codes the
+    iteration schedule, the atanh table and the pre-scaled start value;
+    they must equal the Python ones, and both kernels must include it."""
+    src = (CSRC / "cordic.cuh").read_text()
+    for kernel in ("cordic_softmax.cu", "cordic_act.cu"):
+        assert '#include "cordic.cuh"' in (CSRC / kernel).read_text()
 
     def table(name):
         body = re.search(name + r"\[20\] = \{([^}]*)\}", src).group(1)

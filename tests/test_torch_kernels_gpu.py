@@ -1,4 +1,6 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: K1-K3,
+K3b in all seven modes, the front-end's fixed-order primitives, and the
+row independence of the on-device front-end.
 
 Marked ``gpu``: every test skips without a CUDA device (the kernels have no
 CPU mode).  The file imports neither JAX nor ``repro``, so it runs on a GPU
@@ -14,7 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.data import features_torch  # noqa: E402
+from repro_torch.data.features import FEATURE_DIMS, N_SAMPLES  # noqa: E402
 from repro_torch.kernels import cordic_act as tcordic  # noqa: E402
+from repro_torch.kernels import frontend  # noqa: E402
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q, conv1d_fused_q_plain  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain  # noqa: E402
 
@@ -82,5 +87,44 @@ def test_cordic_softmax_kernel_vs_plain_on_card(card, cols):
     got = tcordic.cordic_softmax(x)
     torch.cuda.synchronize()
     assert _bits_equal(got, tcordic.cordic_softmax_plain(x))
-    with pytest.raises(NotImplementedError, match="K3b"):
-        tcordic.cordic_activation(x, "tanh")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_activation_kernel_vs_plain_on_card(card, mode):
+    rng = np.random.default_rng(len(mode))
+    edges = [4.4, -4.4, 4.3999996, -4.3999996, 30.5, -30.5, -0.0, 0.0, 1e-30, -1e-30, 1e4, -1e4]
+    for x in (rng.uniform(-4, 4, (4096, 128)), rng.uniform(-40, 40, (3, 5, 7)), np.array(edges)):
+        xt = torch.from_numpy(x.astype(np.float32)).to(card)
+        before = tcordic.cordic_activation.launches
+        got = tcordic.cordic_activation(xt, mode)
+        torch.cuda.synchronize()
+        assert tcordic.cordic_activation.launches == before + 1
+        assert _bits_equal(got, tcordic.apply_mode(xt, mode))
+
+
+@pytest.mark.gpu
+def test_frontend_primitives_vs_plain_on_card(card):
+    rng = np.random.default_rng(0)
+    for r, k, n in ((408, 513, 64), (408, 64, 20), (5, 1, 7)):
+        x = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(card)
+        m = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(card)
+        assert _bits_equal(frontend.project_rows(x, m), frontend.project_rows_plain(x, m))
+    for r, n in ((8, 1096), (4104, 51), (3, 1), (2, 65), (1, frontend.MAX_ROW)):
+        x = torch.from_numpy(rng.standard_normal((r, n)).astype(np.float32)).to(card)
+        assert _bits_equal(frontend.row_sum(x), frontend.row_sum_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(FEATURE_DIMS))
+def test_feature_rows_independent_of_co_batch_on_card(card, kind):
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((8, N_SAMPLES)) * 10.0 ** rng.uniform(-2, 2, (8, 1))
+    x = torch.from_numpy(w.astype(np.float32)).to(card)
+    full = features_torch.feature_rows(x, kind)
+    perm = torch.from_numpy(rng.permutation(8)).to(card)
+    assert _bits_equal(full[perm], features_torch.feature_rows(x[perm], kind))
+    for size in (1, 3):
+        assert _bits_equal(full[:size], features_torch.feature_rows(x[:size], kind))
+    padded = torch.cat([x[:3], torch.zeros((5, N_SAMPLES), device=card)])
+    assert _bits_equal(full[:3], features_torch.feature_rows(padded, kind)[:3])

@@ -1,0 +1,100 @@
+"""The port's driver, ``python -m repro_torch.launch.monitor``, against the
+reference's.
+
+``synth_scene`` draws the reference's scenes bit for bit; ``main`` serves
+seeded random weights, and a baked artifact with the front-end on the
+device, where its scores and events equal the reference ``MonitorEngine``
+fed the same delivery schedule; the flags of unported layers exit naming
+their ROADMAP item.
+"""
+import dataclasses
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro.launch.monitor import synth_scene as j_synth_scene  # noqa: E402
+from repro.models import cnn1d as jcnn  # noqa: E402
+from repro.serving.engine import MonitorEngine as JEngine  # noqa: E402
+from repro.serving.quantized_params import load_artifact as j_load  # noqa: E402
+from repro_torch.data import features  # noqa: E402
+from repro_torch.launch import monitor  # noqa: E402
+
+torch.set_num_threads(1)
+
+GOLDEN = Path(__file__).resolve().parents[1] / "artifacts" / "golden"
+ONDEVICE = str(GOLDEN / "detector_int8_ondevice.npz")
+
+
+@pytest.mark.parametrize("seed,seconds", [(0, 2.0), (7, 4.0), (123, 6.4)])
+def test_synth_scene_bitwise_equal_to_reference(seed, seconds):
+    j_rng, t_rng = np.random.default_rng(seed), np.random.default_rng(seed)
+    for _ in range(2):
+        want, want_truth = j_synth_scene(seconds, j_rng)
+        got, got_truth = monitor.synth_scene(seconds, t_rng)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+        assert got_truth == want_truth
+    assert t_rng.random() == j_rng.random()  # same number of draws
+
+
+def test_main_serves_random_weights(capsys):
+    run = monitor.main(["--random", "--device", "cpu", "--seconds", "2", "--streams", "3"])
+    out = capsys.readouterr().out
+    assert run.engine.windows_scored == 3 * 2 == len(run.scores)
+    assert len(run.events) == 3 and len(run.round_seconds) >= 1
+    assert "monitor: --random weights" in out and "windows/s" in out
+    assert "stream 2: ground truth UAV" in out
+
+
+def test_main_on_device_artifact_matches_reference_engine(capsys):
+    argv = ["--artifact", ONDEVICE, "--device-features", "--device", "cpu",
+            "--streams", "3", "--seconds", "4", "--slots", "2", "--seed", "5"]
+    run = monitor.main(argv)
+    out = capsys.readouterr().out
+    assert "on-device zcr front-end" in out
+    assert run.engine.on_device_features and run.engine.artifact.feature_kind == "zcr"
+
+    # the reference engine, fed the same scenes through the same schedule
+    rng = np.random.default_rng(5 + 1)
+    scenes = [j_synth_scene(4.0, rng)[0] for _ in range(3)]
+    schedule = monitor.delivery_schedule(scenes, rng)
+    cfg = jcnn.CNNConfig(input_len=features.FEATURE_DIMS["zcr"], channels=(4, 8), hidden=8)
+    jeng = JEngine(j_load(ONDEVICE), cfg, n_streams=3, feature_kind="zcr",
+                   on_device_features=True, batch_slots=2, interpret=True)
+    want = []
+    for pushes in schedule:
+        for s, lo, hi in pushes:
+            jeng.push(s, scenes[s][lo:hi])
+        want.extend(jeng.step())
+    want.extend(jeng.drain())
+    assert [dataclasses.astuple(w) for w in run.scores] == [dataclasses.astuple(w) for w in want]
+    assert [[dataclasses.astuple(e) for e in evs] for evs in run.events] == \
+        [[dataclasses.astuple(e) for e in evs] for evs in jeng.finalize()]
+    assert len(run.scores) == 3 * 5
+
+
+@pytest.mark.parametrize("extra,road", [
+    (["--workers", "2"], "M7"), (["--faults", "plan.json"], "M7"),
+    (["--lanes", "threads"], "M7"), (["--autoscale"], "M7"),
+    (["--state-dir", "state"], "M7"), (["--fsync", "always"], "M7"),
+    (["--checkpoint-interval", "2"], "M7"), (["--shards", "2"], "M8"),
+    ([], "M9"), (["--trained"], "M9"),
+])
+def test_unported_layers_exit_naming_their_roadmap_item(extra, road):
+    argv = extra if road == "M9" else ["--random", *extra]
+    with pytest.raises(SystemExit, match=road):
+        monitor.main([*argv, "--device", "cpu"])
+
+
+def test_artifact_flag_errors(capsys):
+    with pytest.raises(SystemExit) as exc:
+        monitor.main(["--artifact", ONDEVICE, "--prune", "2", "--device", "cpu"])
+    assert exc.value.code == 2 and "baked --artifact" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="flatten"):
+        monitor.main(["--artifact", ONDEVICE, "--feature", "psd", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="baked for feature kind"):
+        monitor.main(["--artifact", str(GOLDEN / "detector_int8.npz"), "--feature", "zcr",
+                      "--device-features", "--device", "cpu"])
