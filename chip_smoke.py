@@ -9,12 +9,19 @@ failure (no phase catches its own failure and carries on):
 
 1. print the card's name and power limit (``nvidia-smi``), build the kernel
    library from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
-   once) and print the build seconds;
+   once) and print the build seconds; disassemble it (``cuobjdump -sass``)
+   and count the instructions one value costs in each K3b mode and in K3,
+   by pipe (the ``sass_mix`` line), read the SM count and clock, and time
+   an empty kernel (the launch floor).  K3's and K3b's bounds are the
+   largest of bytes at 3.35 TB/s, INT32 instructions at 64 per SM and
+   cycle, and all instructions at 128 per SM and cycle;
 2. hold each kernel against its plain PyTorch version on the card,
    bitwise, at the serving path's shapes and at ragged ones, and time
    kernel, plain version and (where one exists) a single PyTorch library
-   call: K1-K3 as before; K3b in all seven modes at the reference sweep's
-   4096 x 128, at ragged sizes and at the unit's edge values; the
+   call: K1, K2; K3 at 1-100 columns (both sides of its register path);
+   K3b in all seven modes at the reference sweep's 4096 x 128, on every
+   Q15.16 angle the mode can feed the CORDIC, at ragged sizes, on views
+   at 1- and 3-float offsets and at the unit's edge values; the
    front-end's fixed-order projection and row sum;
 3. the im2col sign-off layer ``cordic_activation(conv1d_q(x, w, b),
    "relu")`` at each canonical conv (B = 8), K1 at M = B*L then K3b:
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -56,7 +64,11 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (the front-end's bound)
+#: Hopper SM, per cycle: INT32 results (16 lanes in each of 4 sub-partitions)
+#: and issued thread-instructions (one warp instruction per sub-partition)
+INT32_LANES_PER_SM = 64
+ISSUE_LANES_PER_SM = 128
 SEED = 20261016
 N_STREAMS, SECONDS, SLOTS = 8, 4.0, 8
 MIXED_POLICY = "conv0/w=bf16,dense1/w=fp32"
@@ -104,7 +116,7 @@ def call_ms(torch, fn, *, warmup: int = 10, iters: int = 60) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_ops(torch, fn, *, iters: int, attempts: int = 3) -> list:
+def device_ops(torch, fn, *, iters: int, attempts: int = 4) -> list:
     """The GPU activities (kernels, memsets, copies) of ``iters`` calls,
     from a CUPTI trace, in start order.  A trace that comes back empty is
     taken again, up to ``attempts`` times in all (the profiler now and then
@@ -122,7 +134,21 @@ def device_ops(torch, fn, *, iters: int, attempts: int = 3) -> list:
         if ops:
             return sorted(ops, key=lambda e: e.time_range.start)
         print(f"timing: trace {attempt} of {attempts} held no device activity")
+        time.sleep(0.5)
     return []
+
+
+def events_ms(torch, fn, *, iters: int) -> float:
+    """Time of one call from CUDA events around ``iters`` calls in a row:
+    the stream's time, host gaps between launches included."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def device_time(torch, fn, *, warmup: int = 10, iters: int = 60) -> tuple[float, list]:
@@ -130,12 +156,17 @@ def device_time(torch, fn, *, warmup: int = 10, iters: int = 60) -> tuple[float,
     each call enqueues, from a CUPTI trace, so host overhead does not count.
     The median over calls when the trace splits into equal per-call groups,
     else the mean over the calls the trace holds (a trace may drop the first
-    op).  Also returns one call's op names."""
+    op).  Also returns one call's op names.  When every trace comes back
+    empty, the time is taken with CUDA events instead (``events_ms``) and
+    says so: an upper bound, since host gaps count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ops = device_ops(torch, fn, iters=iters)
-    check(bool(ops), "the CUPTI trace holds no device activity")
+    if not ops:
+        ms = events_ms(torch, fn, iters=iters)
+        print(f"timing: no CUPTI device activity; CUDA events over {iters} calls: {ms} ms")
+        return ms, ["(CUDA events)"]
     per = len(ops) // iters
     if per * iters != len(ops):
         # the trace lost (or split) an op: average over the calls it holds
@@ -156,6 +187,177 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, st
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# instruction counts from the built library's SASS (kernels K3 and K3b)
+# ---------------------------------------------------------------------------
+
+#: SASS opcodes executed on the INT32 pipe, and on the FP32 pipe; the rest
+#: (moves, memory, control, MUFU, conversions) count toward the issue rate only
+SASS_INT32 = frozenset({"IADD3", "IADD", "IADD32I", "IMAD", "IMUL", "ISETP", "ISCADD", "SHF",
+                        "SHL", "SHR", "LOP3", "LOP", "LOP32I", "SEL", "IMNMX", "IABS", "LEA",
+                        "PRMT", "BMSK", "BREV", "VIMNMX"})
+SASS_FP32 = frozenset({"FFMA", "FFMA32I", "FADD", "FADD32I", "FMUL", "FMUL32I", "FSEL", "FSETP",
+                       "FSET", "FMNMX", "FCHK", "FSWZADD"})
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+#: a predicated branch, to a label or to an address
+_SASS_BRA = re.compile(r"^@!?U?P\w+\s+BRA(?:\.\w+)*\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+
+
+def sass_opcode(insn: str) -> str:
+    """``@!P0 FFMA.RM R1, ...`` -> ``FFMA``."""
+    words = insn.split()
+    if words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0]
+
+
+def sass_functions(text: str) -> dict[str, list[tuple[str, str]]]:
+    """``cuobjdump -sass`` output -> {function: [(kind, text)]}: ("I", insn)
+    for an instruction, and ("L", label) for a label or, before each
+    instruction, for its address (``0x...``)."""
+    funcs: dict[str, list[tuple[str, str]]] = {}
+    body = None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            body = funcs.setdefault(head.group(1), [])
+            continue
+        if body is None:
+            continue
+        label = _SASS_LABEL.match(line)
+        if label:
+            body.append(("L", label.group(1)))
+            continue
+        insn = _SASS_INSN.search(line)
+        if insn:
+            body.append(("L", hex(int(insn.group(1), 16))))
+            body.append(("I", insn.group(2)))
+    return funcs
+
+
+def sass_common_path(body: list[tuple[str, str]]) -> list[str]:
+    """The instructions a thread runs from the entry to the first
+    unpredicated EXIT, in a function without loops, skipping each block that
+    a predicated forward branch jumps over to call a subroutine (the slow
+    path of an IEEE division, for divisors and quotients near the ends of
+    the range); NOPs are padding and not counted."""
+    labels = {v: i for i, (k, v) in enumerate(body) if k == "L"}
+    path, i = [], 0
+    while i < len(body):
+        kind, insn = body[i]
+        i += 1
+        if kind == "L" or sass_opcode(insn) == "NOP":
+            continue
+        path.append(insn)
+        if sass_opcode(insn) == "EXIT" and not insn.startswith("@"):
+            break
+        bra = _SASS_BRA.match(insn)
+        target = -1
+        if bra:
+            dest = bra.group(1) or hex(int(bra.group(2), 16))
+            target = labels.get(dest, -1)
+        if target >= i:
+            ops = [sass_opcode(v) for k, v in body[i:target] if k == "I"]
+            if "CALL" in ops and "EXIT" not in ops:
+                i = target
+    return path
+
+
+def sass_mix_of(path: list[str]) -> dict:
+    ops = [sass_opcode(v) for v in path]
+    n_int = sum(op in SASS_INT32 for op in ops)
+    n_fp = sum(op in SASS_FP32 for op in ops)
+    return {"int32": n_int, "fp32": n_fp, "other": len(ops) - n_int - n_fp, "total": len(ops)}
+
+
+def sass_per_value(text: str, probes: dict[str, tuple[str, int, str]]) -> dict[str, dict]:
+    """Instructions per value, by pipe, of each probe ``(function, values
+    it computes, baseline function)``: the probe's count less its
+    baseline's (the same load, store and indexing without the work), over
+    the values."""
+    funcs = sass_functions(text)
+    out = {}
+    for key, (name, values, baseline) in probes.items():
+        for fn in (name, baseline):
+            check(fn in funcs, f"SASS of {fn} not found in the library's disassembly")
+        mix = sass_mix_of(sass_common_path(funcs[name]))
+        base = sass_mix_of(sass_common_path(funcs[baseline]))
+        out[key] = {k: max(0, mix[k] - base[k]) / values for k in mix}
+    return out
+
+
+def sass_bound_ms(n_values: int, bytes_moved: float, per_value: dict, sms: int,
+                  clock_hz: float) -> tuple[float, str, dict]:
+    """The least time for ``n_values`` values: the largest of the bytes at
+    the HBM rate, the INT32 instructions at 64 lanes per SM and cycle, and
+    all instructions at one warp instruction per sub-partition and cycle.
+    Returns (ms, winning term, every term)."""
+    terms = {
+        "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+        "int32": n_values * per_value["int32"] / (INT32_LANES_PER_SM * sms * clock_hz) * 1e3,
+        "issue": n_values * per_value["total"] / (ISSUE_LANES_PER_SM * sms * clock_hz) * 1e3,
+    }
+    term = max(terms, key=terms.get)
+    return terms[term], term, terms
+
+
+def contract_bound_by(term: str) -> str:
+    return "bytes" if term == "bytes" else "operations"
+
+
+def card_rates(torch) -> dict:
+    """The SM count and the SM clock the rates are taken at
+    (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(proc.returncode == 0, f"nvidia-smi clocks failed: {proc.stderr.strip()}")
+    mhz = float(proc.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sms": sms, "clock_hz": mhz * 1e6}
+
+
+def library_sass(backend) -> str:
+    """``cuobjdump -sass`` of the built kernel library, kept beside it."""
+    lib = backend.build()
+    tool = Path(backend._nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr.strip()[:500]}")
+    lib.with_suffix(".sass").write_text(proc.stdout)
+    return proc.stdout
+
+
+#: K3b's modes (a thread's four values, as the kernel takes them) and K3's
+#: row (one lane's value), each as (probe function, values, baseline)
+SASS_PROBES = {
+    **{mode: (f"sass_probe_{mode}", 4, "sass_probe_copy4")
+       for mode in ("tanh", "sigmoid", "exp", "swish", "gelu", "selu", "relu")},
+    "softmax_row": ("sass_probe_softmax_row", 1, "sass_probe_copy"),
+}
+
+
+def sass_phase(torch, backend, gpu_line) -> dict:
+    """Instructions per value of every K3b mode and of K3, by pipe, from the
+    library's SASS; the card's rates; and the launch floor (CUPTI time of an
+    empty kernel)."""
+    text = library_sass(backend)
+    per_value = sass_per_value(text, SASS_PROBES)
+    rates = card_rates(torch)
+    lib = backend.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        backend.check(lib.empty_launch(stream), "empty_launch")
+
+    floor_ms = time_ms(torch, empty)
+    print("sass_mix " + json.dumps({"per_value": per_value, **rates,
+                                    "launch_floor_ms": floor_ms, "gpu": gpu_line}))
+    return {"per_value": per_value, "floor_ms": floor_ms, **rates}
 
 
 def bitwise(torch, a, b) -> bool:
@@ -197,7 +399,12 @@ def _conv_case(torch, gen, dev, bsz, l, cin, cout, k, *, per_sample=True):
     return (x, w, xs, ws, b), dict(act="relu")
 
 
-def kernel_phase(torch, dev, gpu_line):
+#: K3's row widths: the serving path's 2, both sides of the register path's
+#: 32, and rows summed in windows of 32
+K3_COLS = (1, 2, 5, 31, 32, 33, 100)
+
+
+def kernel_phase(torch, dev, gpu_line, sass):
     from repro_torch.kernels.conv1d_fused import conv1d_fused_q, conv1d_fused_q_plain
     from repro_torch.kernels.cordic_act import cordic_softmax, cordic_softmax_plain
     from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
@@ -253,7 +460,7 @@ def kernel_phase(torch, dev, gpu_line):
     # K3: softmax heads, with rows that hit the +-30 clip of the exp argument
     k3_err = 0.0
     k3_main = None
-    for cols in (2, 5):
+    for cols in K3_COLS:
         x = (torch.randn((8, cols), generator=gen) * 4).to(dev)
         x[0, 0] = 80.0
         x[1, -1] = -75.0
@@ -308,13 +515,22 @@ def kernel_phase(torch, dev, gpu_line):
     k1_ms, k1_plain, k1_lib = per_forward(k1_main, quant_matmul, quant_matmul_plain, int_mm_library)
     k2_ms, k2_plain, _ = per_forward(k2_main, conv1d_fused_q, conv1d_fused_q_plain)
     k3_ms, k3_ops = device_time(torch, lambda: cordic_softmax(k3_main))
-    k3_plain, k3_plain_ops = device_time(torch, lambda: cordic_softmax_plain(k3_main), iters=50)
+    k3_plain, k3_plain_ops = device_time(torch, lambda: cordic_softmax_plain(k3_main), iters=10)
     k3_lib = time_ms(torch, lambda: torch.softmax(k3_main, dim=-1))
+    # K3: 8 B per value in and out; its instructions per value from the SASS
+    k3_bound, k3_term, k3_terms = sass_bound_ms(
+        k3_main.numel(), 8 * k3_main.numel(), sass["per_value"]["softmax_row"],
+        sass["sms"], sass["clock_hz"])
+    floor = sass["floor_ms"]
     print("kernel_time " + json.dumps({
-        "kernel": "cordic_softmax", "layer": "head", "ms": k3_ms, "plain_ms": k3_plain,
-        "library_ms": k3_lib, "call_ms": call_ms(torch, lambda: cordic_softmax(k3_main)),
-        "kernel_ops": k3_ops, "plain_ops": len(k3_plain_ops),
-        "gpu": gpu_line,
+        "kernel": "cordic_softmax", "layer": "head", "shape": list(k3_main.shape), "ms": k3_ms,
+        "plain_ms": k3_plain, "library_ms": k3_lib,
+        "call_ms": call_ms(torch, lambda: cordic_softmax(k3_main)),
+        "bound_ms": k3_bound, "bound_by": k3_term, "bound_terms": k3_terms,
+        "launch_floor_ms": floor, "bound_with_floor_ms": max(k3_bound, floor),
+        "bound_share": max(k3_bound, floor) / k3_ms,
+        "sass_per_value": sass["per_value"]["softmax_row"],
+        "kernel_ops": k3_ops, "plain_ops": len(k3_plain_ops), "gpu": gpu_line,
     }))
 
     def qmm_cost(args):
@@ -336,8 +552,6 @@ def kernel_phase(torch, dev, gpu_line):
 
     k1_bound, k1_by = total_bound(k1_main, qmm_cost)
     k2_bound, k2_by = total_bound(k2_main, conv_cost)
-    # K3: 8 B per value in and out; ~150 scalar integer/fp32 ops per value
-    k3_bound, k3_by = bound_ms(8 * k3_main.numel(), 150 * k3_main.numel(), FP32_OPS_PER_S)
 
     results["quant_matmul"] = dict(
         name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
@@ -352,7 +566,8 @@ def kernel_phase(torch, dev, gpu_line):
     results["cordic_softmax"] = dict(
         name="cordic_softmax", route="cuda", source="src/repro_torch/csrc/cordic_softmax.cu",
         replaces="src/repro/kernels/cordic_act.py:132", max_abs_err=k3_err,
-        ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by, library_ms=k3_lib,
+        ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=contract_bound_by(k3_term),
+        library_ms=k3_lib,
     )
     return results
 
@@ -361,53 +576,58 @@ def kernel_phase(torch, dev, gpu_line):
 # phase 2b: kernel K3b (all seven CORDIC modes) and the front-end primitives
 # ---------------------------------------------------------------------------
 
-#: source-level operations per value of each K3b mode, counted from
-#: csrc/cordic_act.cu and csrc/cordic.cuh (the 20 CORDIC stages are 6 each:
-#: two shifts, a sign test and three adds)
-K3B_OPS_PER_VALUE = {"tanh": 138, "sigmoid": 141, "exp": 151, "swish": 142,
-                     "gelu": 144, "selu": 157, "relu": 1}
 #: the edges of the CORDIC unit: tanh's +-4.4 saturation and the value just
 #: inside it, beyond the +-30 exp clip, signed zeros, tiny and huge values
 K3B_EDGES = [4.4, -4.4, 4.3999996, -4.3999996, 30.5, -30.5, 80.0, -80.0,
              -0.0, 0.0, 1e-30, -1e-30, 1e4, -1e4]
+#: ragged sizes: below, at and past one 16-byte vector, and none a multiple
+K3B_RAGGED = ((1,), (3,), (4,), (5,), (33,), (1000,), (3, 5, 7))
 
 
-def cordic_phase(torch, np, dev, gpu_line):
-    """K3b against ``apply_mode`` (bitwise) at the sweep's, ragged and edge
-    inputs, and each mode's time beside its plain version, the nearest
-    PyTorch call and its bound at 4096 x 128."""
+def cordic_phase(torch, np, dev, gpu_line, sass):
+    """K3b against ``apply_mode`` (bitwise) at the sweep's, the exhaustive
+    angle grid's, ragged, offset and edge inputs, and each mode's time
+    beside its plain version, the nearest PyTorch call and its bound at
+    4096 x 128."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.cordic_act import MODES, apply_mode, cordic_activation
+    from repro_torch.kernels.cordic_act import MODES, angle_grid, apply_mode, cordic_activation
 
     rng = np.random.default_rng(SEED)
     sweep = torch.from_numpy(rng.uniform(-4, 4, (4096, 128)).astype(np.float32)).to(dev)
-    inputs = [sweep, torch.tensor(K3B_EDGES, dtype=torch.float32, device=dev)]
+    flat = sweep.reshape(-1)
+    # views at 1- and 3-float offsets: a scalar head before the vectors
+    inputs = [sweep, flat[1:], flat[3:-2], torch.tensor(K3B_EDGES, dtype=torch.float32, device=dev)]
     inputs += [torch.from_numpy(rng.uniform(-6, 6, shape).astype(np.float32)).to(dev)
-               for shape in ((1,), (33,), (1000,), (3, 5, 7))]
+               for shape in K3B_RAGGED]
     err = 0.0
     for mode in MODES:
-        for x in inputs:
+        grid = angle_grid(mode).to(dev)
+        for x in [grid, *inputs]:
             got = cordic_activation(x, mode)
             torch.cuda.synchronize()
             want = apply_mode(x, mode)
             ok = bitwise(torch, got, want)
             err = max(err, max_abs(torch, got, want))
-            check(ok, f"cordic_activation[{mode}] disagrees with apply_mode at {tuple(x.shape)}")
-        print(f"kernel_check cordic_activation[{mode}] shapes={[tuple(x.shape) for x in inputs]} "
-              f"bitwise=True")
+            check(ok, f"cordic_activation[{mode}] disagrees with apply_mode at {tuple(x.shape)} "
+                      f"(offset {x.storage_offset()})")
+        print(f"kernel_check cordic_activation[{mode}] angle grid {tuple(grid.shape)}, "
+              f"shapes={[tuple(x.shape) for x in inputs]} bitwise=True")
     library = {"tanh": torch.tanh, "sigmoid": torch.sigmoid, "exp": torch.exp, "swish": F.silu,
                "gelu": lambda v: F.gelu(v, approximate="tanh"), "selu": F.selu, "relu": torch.relu}
     for mode in MODES:
         t_k, k_ops = device_time(torch, lambda: cordic_activation(sweep, mode))
-        t_p, p_ops = device_time(torch, lambda: apply_mode(sweep, mode), iters=20)
+        t_p, p_ops = device_time(torch, lambda: apply_mode(sweep, mode), warmup=2, iters=5)
         t_l = time_ms(torch, lambda: library[mode](sweep))
-        b_ms, b_by = bound_ms(8 * sweep.numel(), K3B_OPS_PER_VALUE[mode] * sweep.numel(),
-                              FP32_OPS_PER_S)
+        per_value = sass["per_value"][mode]
+        b_ms, b_term, terms = sass_bound_ms(sweep.numel(), 8 * sweep.numel(), per_value,
+                                            sass["sms"], sass["clock_hz"])
         print("kernel_time " + json.dumps({
             "kernel": "cordic_activation", "mode": mode, "shape": list(sweep.shape), "ms": t_k,
-            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
-            "kernel_ops": k_ops, "plain_ops": len(p_ops), "gpu": gpu_line,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_term,
+            "bound_terms": terms, "bound_share": b_ms / t_k, "launch_floor_ms": sass["floor_ms"],
+            "sass_per_value": per_value, "kernel_ops": k_ops, "plain_ops": len(p_ops),
+            "gpu": gpu_line,
         }))
     return err
 
@@ -478,7 +698,7 @@ SIGNOFF_LAYERS = {"conv0": (1096, 1, 64), "conv1": (548, 64, 128), "conv2": (274
 SIGNOFF_ATOL = 1e-5
 
 
-def signoff_phase(torch, np, dev, gpu_line):
+def signoff_phase(torch, np, dev, gpu_line, sass):
     """``cordic_activation(conv1d_q(x, w, b), "relu")`` at each canonical
     conv layer (B = 8) on the card: the main path of K3b, and K1 at
     M = B*L.  Returns the launches of that path and K3b's numbers there."""
@@ -541,14 +761,20 @@ def signoff_phase(torch, np, dev, gpu_line):
         lib_ms += time_ms(torch, lambda: torch.relu(v))
         err = max(err, max_abs(torch, cordic_activation(v, "relu"), apply_mode(v, "relu")))
         n_values += v.numel()
-    b_ms, b_by = bound_ms(8 * n_values, K3B_OPS_PER_VALUE["relu"] * n_values, FP32_OPS_PER_S)
+    b_ms, b_term, terms = sass_bound_ms(n_values, 8 * n_values, sass["per_value"]["relu"],
+                                        sass["sms"], sass["clock_hz"])
+    floor = len(relu_in) * sass["floor_ms"]  # one launch a layer
     print("kernel_time " + json.dumps({
         "kernel": "cordic_activation", "mode": "relu", "per": "three sign-off layers",
-        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "gpu": gpu_line,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_term,
+        "bound_terms": terms, "launch_floor_ms": floor, "bound_with_floor_ms": max(b_ms, floor),
+        "bound_share": max(b_ms, floor) / ms, "sass_per_value": sass["per_value"]["relu"],
+        "gpu": gpu_line,
     }))
     entry = dict(name="cordic_activation", route="cuda", source="src/repro_torch/csrc/cordic_act.cu",
                  replaces="src/repro/kernels/cordic_act.py:132", max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=contract_bound_by(b_term),
+                 library_ms=lib_ms)
     return launches, entry
 
 
@@ -909,8 +1135,9 @@ def main() -> int:
         backend.library()
         print(f"build_seconds {time.perf_counter() - t0:.1f} (nvcc {backend.build_seconds:.1f})")
         dev = torch.device("cuda")
-        kernels = kernel_phase(torch, dev, gpu_line)
-        k3b_err = cordic_phase(torch, np, dev, gpu_line)
+        sass = sass_phase(torch, backend, gpu_line)
+        kernels = kernel_phase(torch, dev, gpu_line, sass)
+        k3b_err = cordic_phase(torch, np, dev, gpu_line, sass)
         kernels.update(frontend_primitive_phase(torch, np, dev, gpu_line))
         launches: dict[str, int] = {}
 
@@ -918,7 +1145,8 @@ def main() -> int:
             for name, c in counts.items():
                 launches[name] = launches.get(name, 0) + c
 
-        signoff_launches, kernels["cordic_activation"] = signoff_phase(torch, np, dev, gpu_line)
+        signoff_launches, kernels["cordic_activation"] = signoff_phase(torch, np, dev, gpu_line,
+                                                                       sass)
         kernels["cordic_activation"]["max_abs_err"] = max(
             k3b_err, kernels["cordic_activation"]["max_abs_err"])
         add(signoff_launches)

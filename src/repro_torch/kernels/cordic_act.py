@@ -1,17 +1,22 @@
-"""CORDIC activation unit (POLARON's AF stage): kernel K3 and its plain twin.
+"""CORDIC activation unit (POLARON's AF stage): kernels K3 and K3b and their
+plain twins.
 
 Counterpart of ``repro/kernels/cordic_act.py``.  The hyperbolic CORDIC runs
-bit-faithfully in Q15.16 int32 shift-add (20 stages, iterations 4 and 13
+bit-faithfully in Q15.16 shift-add (20 stages, iterations 4 and 13
 repeated, arithmetic right shifts), so the port reproduces the RTL unit's
 numbers, not merely the maths.
 
 * :func:`cordic_softmax` is the classifier head of the serving path.  On a
   CUDA tensor it launches kernel K3 (``csrc/cordic_softmax.cu``, one warp
-  per row); on a CPU tensor it runs :func:`cordic_softmax_plain`.
+  per row held in registers); on a CPU tensor it runs
+  :func:`cordic_softmax_plain`.
 * :func:`cordic_activation` is the elementwise unit for all seven modes.
-  On a CUDA tensor it launches kernel K3b (``csrc/cordic_act.cu``, one
-  thread per value); on a CPU tensor it runs :func:`apply_mode`.  Both
-  share the CORDIC device code (``csrc/cordic.cuh``) with K3.
+  On a CUDA tensor it launches kernel K3b (``csrc/cordic_act.cu``, four
+  values a thread through 16-byte loads); on a CPU tensor it runs
+  :func:`apply_mode`.  Both kernels take the CORDIC, the exp and the modes
+  from ``csrc/cordic.cuh``, which carries the stages on the FP32 pipe as
+  exact integer-valued floats: every angle the unit can see
+  (:func:`angle_grid`) keeps every intermediate below 2^17.
 
 Three details carry the reference's bits (its CPU numerics, which the
 golden artifacts pin): ``jnp.exp2(k)`` is ``exp(ln2 * k)`` with XLA's
@@ -19,7 +24,8 @@ golden artifacts pin): ``jnp.exp2(k)`` is ``exp(ln2 * k)`` with XLA's
 (:func:`repro_torch.core.f32_math.exp2_f32`); ``v / ln2`` by the constant
 is evaluated as ``v * float32(1 / ln2)``; and XLA's fused loops contract
 ``1 + t*t`` (tanh doubling) and ``v + 0.044715 v^3`` (gelu) into FMAs.
-Row sums run left to right.
+Row sums run left to right up to 32 values, and in XLA's windows of 32
+beyond (:func:`xla_row_sum`).
 """
 from __future__ import annotations
 
@@ -39,6 +45,11 @@ _GAIN = float(np.prod([np.sqrt(1.0 - 2.0 ** (-2 * i)) for i in ITERS]))
 X0 = round(ONE / _GAIN)  # pre-scaled so x converges to cosh, y to sinh
 
 MODES = ("tanh", "sigmoid", "exp", "swish", "gelu", "selu", "relu")
+
+#: the largest |z| the unit feeds the CORDIC: tanh's clamp at 4.4, over 4,
+#: in Q15.16 (round(1.1 * 2^16)); and the exp's, round(ln2 / 2 * 2^16)
+Z_MAX = 72090
+Z_MAX_EXP = 22713
 
 _SELU_ALPHA = 1.6732632423543772
 _SELU_SCALE = 1.0507009873554805
@@ -74,6 +85,23 @@ def _fx(v: torch.Tensor) -> torch.Tensor:
 def _fl(v: torch.Tensor) -> torch.Tensor:
     """Q15.16 -> fp32 (the scale is a power of two: exact)."""
     return v.to(torch.float32) * (1.0 / ONE)
+
+
+def angle_grid(mode: str) -> torch.Tensor:
+    """fp32 inputs of ``mode`` whose CORDIC angles cover every Q15.16 angle
+    the mode can feed the unit: ``v = 4z / 2^16`` for tanh and gelu (tanh's
+    angle is ``v / 4``), twice that for sigmoid and swish (which take
+    ``tanh(v / 2)``), and ``v = z / 2^16`` with ``|z| <= Z_MAX_EXP`` for exp
+    and selu (there ``k = 0`` and the angle is ``v``); relu takes the tanh
+    grid.  Each value is exact in fp32."""
+    if mode not in MODES:
+        raise ValueError(f"unknown CORDIC mode {mode!r}")
+    if mode in ("exp", "selu"):
+        z = torch.arange(-Z_MAX_EXP, Z_MAX_EXP + 1, dtype=torch.float64)
+        return (z / ONE).to(torch.float32)
+    z = torch.arange(-Z_MAX, Z_MAX + 1, dtype=torch.float64)
+    scale = 8 if mode in ("sigmoid", "swish") else 4
+    return (scale * z / ONE).to(torch.float32)
 
 
 def exp_core(v: torch.Tensor) -> torch.Tensor:
@@ -132,14 +160,18 @@ def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
     if not backend.on_card(x):
         return apply_mode(x, mode)
     flat = x.contiguous().reshape(-1)
-    if flat.numel() >= 2**31:
-        raise ValueError(f"{flat.numel()} values exceed one launch")
-    out = torch.empty_like(flat)
-    if flat.numel():
+    n = flat.numel()
+    if n >= 2**31:
+        raise ValueError(f"{n} values exceed one launch")
+    # the output starts at the input's offset within 16 bytes, so that the
+    # kernel's vector loads and stores line up for a view at any offset
+    shift = flat.data_ptr() % 16 // 4
+    out = torch.empty(n + shift, dtype=torch.float32, device=flat.device)[shift:]
+    if n:
         lib = backend.library()
         with torch.cuda.device(x.device):
             err = lib.cordic_activation_f32(
-                flat.data_ptr(), out.data_ptr(), flat.numel(), MODES.index(mode),
+                flat.data_ptr(), out.data_ptr(), n, MODES.index(mode),
                 backend.stream_ptr(x),
             )
         backend.check(err, "cordic_activation_f32")
@@ -151,16 +183,42 @@ def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
 cordic_activation.launches = 0
 
 
-def cordic_softmax_plain(x: torch.Tensor) -> torch.Tensor:
-    """Row softmax over the last axis with CORDIC exponentials: the plain
-    PyTorch twin of kernel K3, step for step (row max, ``exp_core`` of
-    ``x - max``, left-to-right row sum, IEEE division)."""
-    x = x.to(torch.float32)
-    e = exp_core(x - x.amax(dim=-1, keepdim=True))
+#: XLA's CPU compiler cuts a reduction of more than 32 values into windows
+#: of 32, with the zero padding split between both ends (the low end takes
+#: the smaller half), sums each window from 0 in order, and reduces the
+#: window sums the same way
+SUM_WINDOW = 32
+#: the widest row kernel K3 takes: its window sums fit one level
+K3_MAX_COLS = SUM_WINDOW * SUM_WINDOW
+
+
+def xla_row_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (kept, as size 1) in the reference's order of
+    additions (``jnp.sum`` on the CPU): left to right for up to 32 values,
+    else through windows of 32 as :data:`SUM_WINDOW` describes."""
+    while e.shape[-1] > SUM_WINDOW:
+        n = e.shape[-1]
+        windows = -(-n // SUM_WINDOW)
+        pad = windows * SUM_WINDOW - n
+        e = torch.nn.functional.pad(e, (pad // 2, pad - pad // 2))
+        e = e.reshape(*e.shape[:-1], windows, SUM_WINDOW)
+        acc = torch.zeros(e.shape[:-1], dtype=torch.float32, device=e.device)
+        for i in range(SUM_WINDOW):
+            acc = acc + e[..., i]
+        e = acc
     s = e[..., 0:1]
     for j in range(1, e.shape[-1]):
         s = s + e[..., j : j + 1]
-    return torch.div(e, s)
+    return s
+
+
+def cordic_softmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Row softmax over the last axis with CORDIC exponentials: the plain
+    PyTorch twin of kernel K3, step for step (row max, ``exp_core`` of
+    ``x - max``, the row sum in the reference's order, IEEE division)."""
+    x = x.to(torch.float32)
+    e = exp_core(x - x.amax(dim=-1, keepdim=True))
+    return torch.div(e, xla_row_sum(e))
 
 
 def cordic_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -181,6 +239,8 @@ def _cordic_softmax_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cordic_softmax needs rows of at least one value, got {tuple(x.shape)}")
     x = x.contiguous()
     cols = x.shape[-1]
+    if cols > K3_MAX_COLS:
+        raise ValueError(f"kernel K3 takes rows of up to {K3_MAX_COLS} values, got {cols}")
     rows = x.numel() // cols
     if rows >= 2**31 // 32:
         raise ValueError(f"{rows} rows exceed one launch")

@@ -198,7 +198,43 @@ def test_cordic_activation_all_modes_bitwise(mode):
     assert _bits_equal(want, got.numpy())
 
 
-@pytest.mark.parametrize("cols", [2, 3, 5, 17])
+def test_cordic_sinh_cosh_every_angle_vs_reference():
+    """The port's Q15.16 CORDIC equals the reference's for every angle the
+    unit can see, |z| <= Z_MAX (tanh's clamp at 4.4, over 4)."""
+    z = np.arange(-tcordic.Z_MAX, tcordic.Z_MAX + 1, dtype=np.int32)
+    want_c, want_s = jcordic._cordic_sinh_cosh(jnp.asarray(z))
+    got_c, got_s = tcordic.cordic_sinh_cosh(torch.from_numpy(z))
+    assert _bits_equal(want_c, got_c.numpy()) and _bits_equal(want_s, got_s.numpy())
+
+
+def test_cordic_intermediates_exact_in_fp32():
+    """What lets the kernels run the stages on the FP32 pipe (cordic.cuh):
+    over every angle the unit can see, every intermediate of the x, y and z
+    chains is an integer below 2^17 (fp32 holds integers below 2^24, and the
+    rounding-down FMA floors exactly below 2^22)."""
+    z = torch.arange(-tcordic.Z_MAX, tcordic.Z_MAX + 1, dtype=torch.int32)
+    x, y = torch.full_like(z, tcordic.X0), torch.zeros_like(z)
+    peak = 0
+    for shift, e in zip(tcordic.ITERS, tcordic.ATANH_TABLE):
+        d_pos = z >= 0
+        xs, ys = x >> shift, y >> shift
+        x, y, z = (torch.where(d_pos, x + ys, x - ys), torch.where(d_pos, y + xs, y - xs),
+                   torch.where(d_pos, z - e, z + e))
+        peak = max(peak, int(x.abs().max()), int(y.abs().max()), int(z.abs().max()))
+    assert peak < 2**17
+
+
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_activation_every_angle_bitwise(mode):
+    """``apply_mode`` against the Pallas kernel on inputs that reach every
+    Q15.16 angle the mode can feed the CORDIC (``angle_grid``)."""
+    x = tcordic.angle_grid(mode)
+    want = jcordic.cordic_activation(jnp.asarray(x.numpy()), mode, interpret=True)
+    got = tcordic.cordic_activation(x, mode)
+    assert _bits_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3, 5, 17, 32, 33, 100, 1100])
 def test_cordic_softmax_bitwise(cols):
     rng = np.random.default_rng(cols)
     x = (rng.standard_normal((24, cols)) * 10.0 ** rng.uniform(-1, 2, (24, 1))).astype(np.float32)

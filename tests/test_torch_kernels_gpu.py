@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1-K3,
-K3b in all seven modes, the front-end's fixed-order primitives, and the
-row independence of the on-device front-end.
+K3b in all seven modes (on every angle the unit can see, at ragged sizes
+and on views at odd offsets), the front-end's fixed-order primitives, and
+the row independence of the on-device front-end.
 
 Marked ``gpu``: every test skips without a CUDA device (the kernels have no
 CPU mode).  The file imports neither JAX nor ``repro``, so it runs on a GPU
@@ -80,8 +81,9 @@ def test_conv1d_kernel_vs_plain_on_card(card, b, l, cin, cout, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cols", [2, 5, 40])
+@pytest.mark.parametrize("cols", [1, 2, 5, 31, 32, 33, 40, 100])
 def test_cordic_softmax_kernel_vs_plain_on_card(card, cols):
+    """Both sides of the kernel's register path (cols <= 32) and its row loop."""
     rng = np.random.default_rng(cols)
     x = torch.from_numpy((rng.standard_normal((37, cols)) * 20).astype(np.float32)).to(card)
     got = tcordic.cordic_softmax(x)
@@ -101,6 +103,43 @@ def test_cordic_activation_kernel_vs_plain_on_card(card, mode):
         torch.cuda.synchronize()
         assert tcordic.cordic_activation.launches == before + 1
         assert _bits_equal(got, tcordic.apply_mode(xt, mode))
+
+
+@pytest.mark.gpu
+def test_cordic_softmax_refuses_wide_rows_on_card(card):
+    """Kernel K3 sums one level of the reference's windows of 32: rows up to
+    1024 values; wider rows raise rather than fall back."""
+    x = torch.zeros((2, tcordic.K3_MAX_COLS + 1), device=card)
+    with pytest.raises(ValueError, match="up to 1024"):
+        tcordic.cordic_softmax(x)
+    got = tcordic.cordic_softmax(x[:, :-1])
+    torch.cuda.synchronize()
+    assert _bits_equal(got, tcordic.cordic_softmax_plain(x[:, :-1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_activation_every_angle_on_card(card, mode):
+    """Every Q15.16 angle the mode can feed the CORDIC, on the FP32-pipe stages."""
+    x = tcordic.angle_grid(mode).to(card)
+    got = tcordic.cordic_activation(x, mode)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, tcordic.apply_mode(x, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", tcordic.MODES)
+def test_cordic_activation_ragged_and_offset_on_card(card, mode):
+    """Sizes around one 16-byte vector, and views at 1- and 3-float offsets:
+    the kernel's scalar head and tail beside its vector loads."""
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.uniform(-6, 6, 4096 * 128).astype(np.float32)).to(card)
+    views = [flat[:size] for size in (1, 3, 4, 5, 33, 1000)]
+    views += [flat[1:], flat[3:-2], flat[1:6], flat[2:3]]
+    for x in views:
+        got = tcordic.cordic_activation(x, mode)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, tcordic.apply_mode(x, mode)), (x.numel(), x.storage_offset())
 
 
 @pytest.mark.gpu

@@ -1,0 +1,77 @@
+"""The SASS instruction counts behind K3's and K3b's bounds in
+``chip_smoke.py``, on a listing in ``cuobjdump -sass``'s format.
+
+The smoke disassembles the built kernel library on the card; here a small
+listing pins what it counts: the straight path to the first EXIT, without
+the division slow path's call sites that a predicated branch jumps over,
+by pipe, per value after the baseline probe, and the bound's three terms.
+"""
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+LISTING = """
+	code for sm_90a
+		Function : sass_probe_copy4
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                          /* 0x00000a00ff017b82 */
+                                                                                   /* 0x000fe40000000800 */
+        /*0010*/                   S2R R5, SR_TID.X ;                              /* 0x0000000000057919 */
+        /*0020*/                   LDG.E.128 R8, desc[UR4][R2.64] ;                /* 0x0000000402087981 */
+        /*0030*/                   STG.E.128 desc[UR4][R4.64], R8 ;                /* 0x0000000804007986 */
+        /*0040*/                   EXIT ;                                          /* 0x000000000000794d */
+        /*0050*/                   BRA 0x50;                                       /* 0xfffffffc00fc7947 */
+		Function : sass_probe_tanh
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                          /* 0x00000a00ff017b82 */
+        /*0010*/                   S2R R5, SR_TID.X ;                              /* 0x0000000000057919 */
+        /*0020*/                   LDG.E.128 R8, desc[UR4][R2.64] ;                /* 0x0000000402087981 */
+        /*0030*/                   FFMA.RM R0, R8, 0.5, R7 ;                       /* 0x0000000402037981 */
+        /*0040*/                   LOP3.LUT R0, R0, 0x80000000, R6, 0xf8, !PT ;    /* 0x0000000402037981 */
+        /*0050*/                   FCHK P0, R0, R3 ;                               /* 0x0000000402037981 */
+        /*0060*/                   BSSY B0, 0xa0 ;                                 /* 0x0000000402037981 */
+        /*0070*/                   @!P0 BRA 0xa0 ;                                 /* 0x0000000402037981 */
+        /*0080*/                   MOV R4, 0xa0 ;                                  /* 0x0000000402037981 */
+        /*0090*/                   CALL.REL.NOINC 0xf0 ;                           /* 0x0000000402037981 */
+        /*00a0*/                   BSYNC B0 ;                                      /* 0x0000000402037981 */
+        /*00b0*/                   @P1 BRA 0xd0 ;                                  /* 0x0000000402037981 */
+        /*00c0*/                   IMAD.MOV.U32 R9, RZ, RZ, R0 ;                   /* 0x0000000402037981 */
+        /*00d0*/                   STG.E.128 desc[UR4][R4.64], R8 ;                /* 0x0000000804007986 */
+        /*00e0*/                   EXIT ;                                          /* 0x000000000000794d */
+        /*00f0*/                   FFMA R0, R3, 0.5, R7 ;                          /* 0x0000000402037981 */
+        /*0100*/                   RET.REL.NODEC R4 0x0 ;                          /* 0x0000000402037981 */
+        /*0110*/                   NOP;                                            /* 0x0000000402037981 */
+"""
+
+
+def test_common_path_skips_slow_path_call_and_stops_at_exit():
+    funcs = chip_smoke.sass_functions(LISTING)
+    assert set(funcs) == {"sass_probe_copy4", "sass_probe_tanh"}
+    path = chip_smoke.sass_common_path(funcs["sass_probe_tanh"])
+    ops = [chip_smoke.sass_opcode(v) for v in path]
+    # MOV and CALL (the slow path's call site) are jumped over; the
+    # subroutine after EXIT and the NOP padding are not reached
+    assert ops == ["LDC", "S2R", "LDG", "FFMA", "LOP3", "FCHK", "BSSY", "BRA", "BSYNC",
+                   "BRA", "IMAD", "STG", "EXIT"]
+    assert chip_smoke.sass_mix_of(path) == {"int32": 2, "fp32": 2, "other": 9, "total": 13}
+
+
+def test_per_value_counts_and_bound_terms():
+    per = chip_smoke.sass_per_value(
+        LISTING, {"tanh": ("sass_probe_tanh", 4, "sass_probe_copy4")})["tanh"]
+    assert per == {"int32": 0.5, "fp32": 0.5, "other": 1.0, "total": 2.0}
+    with pytest.raises(chip_smoke.SmokeFailure, match="not found"):
+        chip_smoke.sass_per_value(LISTING, {"exp": ("sass_probe_exp", 4, "sass_probe_copy4")})
+    n, sms, clock = 4096 * 128, 132, 1.98e9
+    ms, term, terms = chip_smoke.sass_bound_ms(
+        n, 8 * n, {"int32": 20, "total": 200}, sms, clock)
+    assert terms["bytes"] == pytest.approx(8 * n / 3.35e12 * 1e3)
+    assert terms["int32"] == pytest.approx(n * 20 / (64 * sms * clock) * 1e3)
+    assert terms["issue"] == pytest.approx(n * 200 / (128 * sms * clock) * 1e3)
+    assert (ms, term) == (terms["issue"], "issue")
+    assert chip_smoke.contract_bound_by(term) == "operations"
+    assert chip_smoke.contract_bound_by("bytes") == "bytes"
