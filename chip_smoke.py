@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --parent DIR   # also time K1 and K2 against a
+                                         # checkout of the parent commit
 
 Needs one CUDA device and ``nvcc``; it never imports JAX or the ``repro``
 package.  Phases, each of which ends the run with a non-zero exit on
@@ -14,11 +16,17 @@ failure (no phase catches its own failure and carries on):
    by pipe (the ``sass_mix`` line), read the SM count and clock, and time
    an empty kernel (the launch floor).  K3's and K3b's bounds are the
    largest of bytes at 3.35 TB/s, INT32 instructions at 64 per SM and
-   cycle, and all instructions at 128 per SM and cycle;
+   cycle, and all instructions at 128 per SM and cycle.  A second
+   ``sass_mix`` line counts ``IMMA``, ``LDGSTS``, ``LDG.E.128``, ``ATOMG``
+   and ``RED`` in each K1 and K2 kernel; a tensor-core kernel without
+   ``IMMA`` fails the run;
 2. hold each kernel against its plain PyTorch version on the card,
    bitwise, at the serving path's shapes and at ragged ones, and time
    kernel, plain version and (where one exists) a single PyTorch library
-   call: K1, K2; K3 at 1-100 columns (both sides of its register path);
+   call: K1 (M in 1, 8, 9, 64, 8,768; split and unsplit K; ragged K and N)
+   and K2 (Cin 1-200 around the MMA depth, L 1-1,096, K 1/3/5), on
+   outputs and accumulators, each serving layer one device operation and
+   timed beside its bound; K3 at 1-100 columns (both sides of its register path);
    K3b in all seven modes at the reference sweep's 4096 x 128, on every
    Q15.16 angle the mode can feed the CORDIC, at ragged sizes, on views
    at 1- and 3-float offsets and at the unit's edge values; the
@@ -43,6 +51,13 @@ failure (no phase catches its own failure and carries on):
    for int8, within 1e-5 for the mixed cell) or, for the on-device cell,
    a batched raw-window forward on the card (bitwise), with the card's
    features within ``PARITY_ATOL`` of the CPU's.
+
+Then K2 is timed at every tile and stage count it takes and K1 at other
+splits of K, and every serving call of both again with the card held busy
+before each call (the ``tile_sweep`` lines).  With ``--parent DIR``, K1's
+and K2's device time at every serving layer is
+then taken for DIR's kernels and this tree's in fresh processes, in the
+order parent, change, change, parent (the ``kernel_compare`` line).
 
 Output: per-phase lines, one JSON line with every kernel's numbers, the
 ``nvidia-smi`` line, and as the last line the contract
@@ -341,6 +356,44 @@ SASS_PROBES = {
 }
 
 
+#: K1's and K2's kernels in the library's SASS, and the instructions that
+#: show their design: int8 tensor-core products, asynchronous and 16-byte
+#: global loads, and the split-K atomics
+SASS_W8A8_KERNELS = ("conv1d_mma_kernel", "conv1d_small_cin_kernel", "qmm_kernel")
+_SASS_TEMPLATE = re.compile(r"(" + "|".join(SASS_W8A8_KERNELS) + r")I(.*?)EEv")
+
+
+def sass_mnemonic(insn: str) -> str:
+    """``@!P0 LDG.E.128 R4, ...`` -> ``LDG.E.128``."""
+    words = insn.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def sass_w8a8_mix(text: str) -> dict[str, dict[str, int]]:
+    """For each instance of K1's and K2's kernel templates (``name<args>``),
+    the static count of ``IMMA``, ``LDGSTS`` (cp.async), ``LDG.E.128``,
+    ``ATOMG`` and ``RED`` (``RED`` or ``REDG``) instructions in its SASS."""
+    out = {}
+    for fname, body in sass_functions(text).items():
+        m = _SASS_TEMPLATE.search(fname)
+        if not m:
+            continue
+        args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+        counts = dict.fromkeys(("IMMA", "LDGSTS", "LDG.E.128", "ATOMG", "RED"), 0)
+        for kind, insn in body:
+            if kind != "I":
+                continue
+            op, mnem = sass_opcode(insn), sass_mnemonic(insn)
+            if op in ("IMMA", "LDGSTS", "ATOMG"):
+                counts[op] += 1
+            elif op in ("RED", "REDG"):  # a global reduction, no value returned
+                counts["RED"] += 1
+            elif op == "LDG" and ".128" in mnem:
+                counts["LDG.E.128"] += 1
+        out[f"{m.group(1)}<{','.join(args)}>"] = counts
+    return out
+
+
 def sass_phase(torch, backend, gpu_line) -> dict:
     """Instructions per value of every K3b mode and of K3, by pipe, from the
     library's SASS; the card's rates; and the launch floor (CUPTI time of an
@@ -357,6 +410,14 @@ def sass_phase(torch, backend, gpu_line) -> dict:
     floor_ms = time_ms(torch, empty)
     print("sass_mix " + json.dumps({"per_value": per_value, **rates,
                                     "launch_floor_ms": floor_ms, "gpu": gpu_line}))
+    mix = sass_w8a8_mix(text)
+    print("sass_mix " + json.dumps({"w8a8_kernels": mix, "gpu": gpu_line}))
+    for name, counts in mix.items():
+        if name.startswith(("conv1d_mma_kernel", "qmm_kernel")):
+            check(counts["IMMA"] > 0, f"{name}: no IMMA (int8 tensor-core) instruction in its SASS")
+    check(any(k.startswith("conv1d_mma_kernel") for k in mix)
+          and any(k.startswith("qmm_kernel") for k in mix),
+          "K1's or K2's tensor-core kernel is missing from the library's SASS")
     return {"per_value": per_value, "floor_ms": floor_ms, **rates}
 
 
@@ -377,18 +438,18 @@ def max_abs(torch, a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _qmm_case(torch, gen, dev, m, k, n, *, act, clip=None, bias=True):
+def _qmm_case(torch, gen, dev, m, k, n, *, act, clip=None, bias=True, per_row=True):
     def ri(shape):
         return torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8).to(dev)
 
     x, w = ri((m, k)), ri((k, n))
-    xs = (torch.rand((m, 1), generator=gen) * 0.05 + 1e-3).to(dev)
+    xs = (torch.rand((m, 1) if per_row else (1, 1), generator=gen) * 0.05 + 1e-3).to(dev)
     ws = (torch.rand((1, n), generator=gen) * 1e-3 + 1e-5).to(dev)
     b = (torch.randn(n, generator=gen) * 0.1).to(dev) if bias else None
     return (x, w, xs, ws, b), dict(act=act, clip=clip)
 
 
-def _conv_case(torch, gen, dev, bsz, l, cin, cout, k, *, per_sample=True):
+def _conv_case(torch, gen, dev, bsz, l, cin, cout, k, *, per_sample=True, clip=None):
     def ri(shape):
         return torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8).to(dev)
 
@@ -396,7 +457,33 @@ def _conv_case(torch, gen, dev, bsz, l, cin, cout, k, *, per_sample=True):
     xs = (torch.rand((bsz, 1) if per_sample else (), generator=gen) * 0.05 + 1e-3).to(dev)
     ws = (torch.rand((cout,), generator=gen) * 1e-2 + 1e-4).to(dev)
     b = (torch.randn(cout, generator=gen) * 0.1).to(dev)
-    return (x, w, xs, ws, b), dict(act="relu")
+    return (x, w, xs, ws, b), dict(act="relu", clip=clip)
+
+
+#: K1's edge shapes: rows on both sides of its 8- and 64-row tiles, with
+#: split K, ragged K and N, and the im2col sign-off depths at M = B*L
+K1_EDGE_M = (1, 8, 9, 64, 8768)
+K1_EDGE_KN = ((8704, 64), (37, 5), (64, 2), (384, 256))
+#: K2's edge shapes: ragged Cin around the MMA depth of 32, L around the row
+#: tiles, K in {1, 3, 5} in turn
+K2_EDGE_CIN = (1, 4, 5, 31, 32, 33, 200)
+K2_EDGE_L = (1, 63, 274, 1096)
+
+
+def qmm_cost(args):
+    """(bytes, int8 operations) of one K1 call: each input once, the output once."""
+    x, w = args[0], args[1]
+    m, k = x.shape
+    n = w.shape[1]
+    return m * k + k * n + 4 * (m + 2 * n) + 4 * m * n, 2 * m * k * n
+
+
+def conv_cost(args):
+    """(bytes, int8 operations) of one K2 call."""
+    x, w = args[0], args[1]
+    b, l, cin = x.shape
+    k, _, cout = w.shape
+    return b * l * cin + k * cin * cout + 4 * (b + 2 * cout) + 4 * b * l * cout, 2 * b * l * k * cin * cout
 
 
 #: K3's row widths: the serving path's 2, both sides of the register path's
@@ -441,6 +528,10 @@ def kernel_phase(torch, dev, gpu_line, sass):
                         (1, 1, 1, dict(act=None)), (64, 8704, 64, dict(act="relu"))):
         args, kw2 = _qmm_case(torch, gen, dev, m, k, n, **kw)
         k1_err = max(k1_err, compare("quant_matmul", quant_matmul, quant_matmul_plain, args, kw2))
+    for i, (m, (k, n)) in enumerate((m, kn) for m in K1_EDGE_M for kn in K1_EDGE_KN):
+        kw = dict(act="relu", clip=0.05) if i % 2 else dict(act=None)
+        args, kw2 = _qmm_case(torch, gen, dev, m, k, n, per_row=i % 3 != 0, **kw)
+        k1_err = max(k1_err, compare("quant_matmul", quant_matmul, quant_matmul_plain, args, kw2))
 
     # K2: the three conv blocks (and the pruned conv2) plus edge cases
     k2_main = {
@@ -455,6 +546,11 @@ def kernel_phase(torch, dev, gpu_line, sass):
                               ((3, 77, 12, 20, 1), True), ((2, 63, 5, 70, 5), False),
                               ((1, 1, 1, 1, 3), True), ((2, 100, 200, 33, 3), True)):
         args, kw = _conv_case(torch, gen, dev, *shape, per_sample=per_sample)
+        k2_err = max(k2_err, compare("conv1d_fused_q", conv1d_fused_q, conv1d_fused_q_plain, args, kw))
+    for i, (cin, l) in enumerate((c, ln) for c in K2_EDGE_CIN for ln in K2_EDGE_L):
+        k, cout = (1, 3, 5)[i % 3], (8, 70, 64, 33)[i % 4]
+        args, kw = _conv_case(torch, gen, dev, 2, l, cin, cout, k, per_sample=i % 2 == 0,
+                              clip=0.05 if i % 3 == 1 else None)
         k2_err = max(k2_err, compare("conv1d_fused_q", conv1d_fused_q, conv1d_fused_q_plain, args, kw))
 
     # K3: softmax heads, with rows that hit the +-30 clip of the exp argument
@@ -474,17 +570,25 @@ def kernel_phase(torch, dev, gpu_line, sass):
         print(f"kernel_check cordic_softmax shape={tuple(x.shape)} bitwise={ok} max_abs_err={k3_err}")
         check(ok, f"cordic_softmax disagrees with its plain version at {tuple(x.shape)}")
 
-    # timing at the serving shapes (one forward's launches of each kernel)
-    def per_forward(cases, kernel, plain, library=None):
+    # timing at the serving shapes (one forward's launches of each kernel),
+    # each layer beside its bound; a serving call is one device operation
+    def per_forward(cases, kernel, plain, cost, library=None):
         ms = plain_ms = 0.0
         lib_ms = 0.0 if library is not None else None
         for name, (args, kw) in cases.items():
             t_k, k_ops = device_time(torch, lambda: kernel(*args, **kw))
             t_p, p_ops = device_time(torch, lambda: plain(*args, **kw), iters=50)
             ms, plain_ms = ms + t_k, plain_ms + t_p
+            b_ms, b_by = bound_ms(*cost(args), INT8_OPS_PER_S)
+            traced = bool(k_ops) and k_ops != ["(CUDA events)"]
+            if traced:
+                check(len(k_ops) == 1, f"{kernel.__name__}[{name}] is {len(k_ops)} device "
+                                       f"operations a call: {k_ops}")
             line = {"kernel": kernel.__name__, "layer": name, "ms": t_k, "plain_ms": t_p,
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t_k,
                     "call_ms": call_ms(torch, lambda: kernel(*args, **kw)),
-                    "kernel_ops": k_ops, "plain_ops": len(p_ops)}
+                    "kernel_ops": len(k_ops) if traced else None, "kernel_op_names": k_ops,
+                    "plain_ops": len(p_ops)}
             if library is not None:
                 t_l = library(args, kw)
                 lib_ms = None if (t_l is None or lib_ms is None) else lib_ms + t_l
@@ -512,8 +616,14 @@ def kernel_phase(torch, dev, gpu_line, sass):
               f"({mp}, {kp})x({kp}, {np_})")
         return time_ms(torch, call)
 
-    k1_ms, k1_plain, k1_lib = per_forward(k1_main, quant_matmul, quant_matmul_plain, int_mm_library)
-    k2_ms, k2_plain, _ = per_forward(k2_main, conv1d_fused_q, conv1d_fused_q_plain)
+    k1_ms, k1_plain, k1_lib = per_forward(k1_main, quant_matmul, quant_matmul_plain, qmm_cost,
+                                          int_mm_library)
+    k2_ms, k2_plain, _ = per_forward(k2_main, conv1d_fused_q, conv1d_fused_q_plain, conv_cost)
+    # the pruned_mixed cell's layers, timed alone (not part of the forward sums above)
+    per_forward({"dense0_pruned": _qmm_case(torch, gen, dev, 8, 8704, 64, act="relu")},
+                quant_matmul, quant_matmul_plain, qmm_cost)
+    per_forward({"conv2_pruned": _conv_case(torch, gen, dev, 8, 274, 128, 64, 3)},
+                conv1d_fused_q, conv1d_fused_q_plain, conv_cost)
     k3_ms, k3_ops = device_time(torch, lambda: cordic_softmax(k3_main))
     k3_plain, k3_plain_ops = device_time(torch, lambda: cordic_softmax_plain(k3_main), iters=10)
     k3_lib = time_ms(torch, lambda: torch.softmax(k3_main, dim=-1))
@@ -533,18 +643,6 @@ def kernel_phase(torch, dev, gpu_line, sass):
         "kernel_ops": k3_ops, "plain_ops": len(k3_plain_ops), "gpu": gpu_line,
     }))
 
-    def qmm_cost(args):
-        x, w = args[0], args[1]
-        m, k = x.shape
-        n = w.shape[1]
-        return m * k + k * n + 4 * (m + 2 * n) + 4 * m * n, 2 * m * k * n
-
-    def conv_cost(args):
-        x, w = args[0], args[1]
-        b, l, cin = x.shape
-        k, _, cout = w.shape
-        return b * l * cin + k * cin * cout + 4 * (b + 2 * cout) + 4 * b * l * cout, 2 * b * l * k * cin * cout
-
     def total_bound(cases, cost):
         bytes_moved = sum(cost(args)[0] for args, _ in cases.values())
         ops = sum(cost(args)[1] for args, _ in cases.values())
@@ -552,6 +650,11 @@ def kernel_phase(torch, dev, gpu_line, sass):
 
     k1_bound, k1_by = total_bound(k1_main, qmm_cost)
     k2_bound, k2_by = total_bound(k2_main, conv_cost)
+    for name, t, bound, by in (("quant_matmul", k1_ms, k1_bound, k1_by),
+                               ("conv1d_fused_q", k2_ms, k2_bound, k2_by)):
+        print("kernel_time " + json.dumps({"kernel": name, "per": "forward", "ms": t,
+                                           "bound_ms": bound, "bound_by": by,
+                                           "bound_share": bound / t, "gpu": gpu_line}))
 
     results["quant_matmul"] = dict(
         name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
@@ -654,13 +757,14 @@ def frontend_primitive_phase(torch, np, dev, gpu_line):
         want = project_rows_plain(x, m)
         err = max(err, max_abs(torch, got, want))
         check(bitwise(torch, got, want), f"project_rows disagrees at {tuple(x.shape)}x{tuple(m.shape)}")
-    for x in sum_cases + [rand(3, 1), rand(2, 65), rand(1, 32 * 1024)]:
+    for x in sum_cases + [rand(3, 1), rand(2, 65), rand(5, 100), rand(3, 4104), rand(1, 32 * 1024)]:
         got = row_sum(x)
         torch.cuda.synchronize()
         want = row_sum_plain(x)
         err = max(err, max_abs(torch, got, want))
         check(bitwise(torch, got, want), f"row_sum disagrees at {tuple(x.shape)}")
-    print("kernel_check project_rows, row_sum at the mfcc20 block shapes and ragged ones: bitwise=True")
+    print("kernel_check project_rows, row_sum at the mfcc20 block shapes and ragged ones "
+          "(row_sum at 1-32,768 values, 100, 1,096 and 4,104 among them): bitwise=True")
 
     def timed(cases, kernel, plain, library, cost):
         ms = plain_ms = lib_ms = 0.0
@@ -1113,8 +1217,159 @@ def ondevice_phase(torch, np, dev, gpu_line):
     return counts
 
 
-def main() -> int:
+#: K1's and K2's layers at 8 slots: (kernel, shape) as _qmm_case / _conv_case take them
+COMPARE_LAYERS = {
+    "dense0": ("quant_matmul", (8, 35072, 64)), "dense0_pruned": ("quant_matmul", (8, 8704, 64)),
+    "dense1": ("quant_matmul", (8, 64, 2)), "conv0": ("conv1d_fused_q", (8, 1096, 1, 64, 3)),
+    "conv1": ("conv1d_fused_q", (8, 548, 64, 128, 3)),
+    "conv2": ("conv1d_fused_q", (8, 274, 128, 256, 3)),
+    "conv2_pruned": ("conv1d_fused_q", (8, 274, 128, 64, 3)),
+}
+#: run in a fresh process against one checkout (argv[1]): its own
+#: chip_smoke.py's case makers and timer, its own kernels; prints one
+#: "TIMES {...}" line of CUPTI ms a call per layer
+COMPARE_SNIPPET = r"""
+import json, sys
+root = sys.argv[1]
+sys.path[:0] = [root, root + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels.conv1d_fused import conv1d_fused_q
+from repro_torch.kernels.quant_matmul import quant_matmul
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(cs.SEED)
+times = {}
+for name, (kernel, shape) in json.loads(sys.argv[2]).items():
+    if kernel == "quant_matmul":
+        fn, (args, kw) = quant_matmul, cs._qmm_case(torch, gen, dev, *shape, act="relu")
+    else:
+        fn, (args, kw) = conv1d_fused_q, cs._conv_case(torch, gen, dev, *shape)
+    times[name] = cs.device_time(torch, lambda: fn(*args, **kw))[0]
+print("TIMES " + json.dumps(times))
+"""
+
+
+def held_clock_ms(torch, fn, *, iters: int = 30, spin_cycles: int = 2_000_000) -> float:
+    """Device time (ms) of the kernel ``fn`` launches (one op a call) when a
+    spin kernel (``torch.cuda._sleep``, ~1 ms) runs just before each call,
+    so that the card does not clock down in the host gaps between calls.
+    The spin kernels are left out by their length (over 0.1 ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def spun():
+        torch.cuda._sleep(spin_cycles)
+        fn()
+
+    for _ in range(5):
+        spun()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            spun()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.time_range.elapsed_us() < 100]
+    check(bool(ops), "held-clock timing: the trace holds no kernel")
+    return statistics.median(e.time_range.elapsed_us() for e in ops) / 1e3
+
+
+def sweep_phase(torch, dev, gpu_line) -> None:
+    """K2's device time for every tile and stage count the kernel takes,
+    and K1's for other splits of K, at the serving layers and at other
+    batch sizes (B = 1, 32): what the tiling functions choose, beside what
+    they could have chosen; and every serving call of K1 and K2 timed
+    again with the card held busy before each call (``held_clock_ms``).
+    One ``tile_sweep`` line a case."""
+    import dataclasses as dc
+
+    from repro_torch.kernels import conv1d_fused as tconv
+    from repro_torch.kernels import quant_matmul as tqmm
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    chosen_conv, chosen_qmm = tconv.conv_tiling, tqmm.qmm_tiling
+    try:
+        for label, shape in (("conv1", (8, 548, 64, 128, 3)), ("conv2", (8, 274, 128, 256, 3)),
+                             ("conv2_b1", (1, 274, 128, 256, 3)),
+                             ("conv2_b32", (32, 274, 128, 256, 3))):
+            args, kw = _conv_case(torch, gen, dev, *shape)
+            base = chosen_conv(*shape)
+            for bm, bn in ((64, 64), (32, 64), (64, 32), (32, 32)):
+                for stages in (2, 4):
+                    tile = dc.replace(base, bm=bm, bn=bn, stages=stages)
+                    tconv.conv_tiling = lambda *a, t=tile: t
+                    ms = time_ms(torch, lambda: tconv.conv1d_fused_q(*args, **kw))
+                    print("tile_sweep " + json.dumps({
+                        "layer": label, "bm": bm, "bn": bn, "stages": stages, "ms": ms,
+                        "chosen": (bm, bn, stages) == (base.bm, base.bn, base.stages),
+                        "gpu": gpu_line}))
+            tconv.conv_tiling = chosen_conv
+            ms = time_ms(torch, lambda: tconv.conv1d_fused_q(*args[:4], return_acc=True))
+            print("tile_sweep " + json.dumps({"layer": label, "return_acc": True, "ms": ms,
+                                              "gpu": gpu_line}))
+        # the same serving calls with the card held busy before each one
+        for label, (kernel, shape) in COMPARE_LAYERS.items():
+            if kernel == "quant_matmul":
+                fn, (args, kw) = tqmm.quant_matmul, _qmm_case(torch, gen, dev, *shape, act="relu")
+            else:
+                fn, (args, kw) = tconv.conv1d_fused_q, _conv_case(torch, gen, dev, *shape)
+            print("tile_sweep " + json.dumps({
+                "layer": label, "ms": time_ms(torch, lambda: fn(*args, **kw)),
+                "held_clock_ms": held_clock_ms(torch, lambda: fn(*args, **kw)),
+                "gpu": gpu_line}))
+        for label, (m, k, n) in (("dense0", (8, 35072, 64)), ("dense0_pruned", (8, 8704, 64))):
+            args, kw = _qmm_case(torch, gen, dev, m, k, n, act="relu")
+            base = chosen_qmm(m, k, n)
+            chunks = -(-k // tqmm.CHUNK_K)
+            for per_block in (1, 2, 4, 8):
+                tile = dc.replace(base, chunks_per_block=per_block, splits=-(-chunks // per_block))
+                tqmm.qmm_tiling = lambda *a, t=tile: t
+                ms = time_ms(torch, lambda: tqmm.quant_matmul(*args, **kw))
+                print("tile_sweep " + json.dumps({
+                    "layer": label, "chunks_per_block": per_block, "splits": tile.splits,
+                    "ms": ms, "chosen": tile == base, "gpu": gpu_line}))
+    finally:
+        tconv.conv_tiling, tqmm.qmm_tiling = chosen_conv, chosen_qmm
+
+
+def compare_phase(parent: Path, gpu_line: str) -> dict:
+    """K1's and K2's device time a call at every serving layer, for the
+    parent checkout and this one, each in its own process, in the order
+    parent, change, change, parent on this card."""
+    runs = []
+    for root in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run([sys.executable, "-c", COMPARE_SNIPPET, str(root),
+                               json.dumps(COMPARE_LAYERS)],
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TIMES ")]
+        check(proc.returncode == 0 and bool(lines),
+              f"timing run in {root} failed: {proc.stderr.strip()[-2000:]}")
+        runs.append(json.loads(lines[-1][len("TIMES "):]))
+    out = {}
+    for name, (kernel, _) in COMPARE_LAYERS.items():
+        out[name] = {"kernel": kernel, "parent_ms": [runs[0][name], runs[3][name]],
+                     "change_ms": [runs[1][name], runs[2][name]]}
+    for kernel, layers in (("quant_matmul", ("dense0", "dense1")),
+                           ("conv1d_fused_q", ("conv0", "conv1", "conv2"))):
+        out[f"{kernel}_per_forward"] = {
+            "kernel": kernel, "layers": list(layers),
+            "parent_ms": [sum(runs[i][n] for n in layers) for i in (0, 3)],
+            "change_ms": [sum(runs[i][n] for n in layers) for i in (1, 2)]}
+    print("kernel_compare " + json.dumps({"parent": str(parent), "order": "parent, change, "
+                                          "change, parent", "layers": out, "gpu": gpu_line}))
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: also time its K1 and K2 at the "
+                         "serving layers beside this tree's, in turns")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: no CUDA device is available", file=sys.stderr)
@@ -1153,6 +1408,9 @@ def main() -> int:
         frontend_phase(torch, np, dev, gpu_line)
         add(engine_phase(torch, np, dev, gpu_line))
         add(ondevice_phase(torch, np, dev, gpu_line))
+        sweep_phase(torch, dev, gpu_line)
+        if args.parent is not None:
+            compare_phase(args.parent.resolve(), gpu_line)
         for name in kernels:
             check(launches.get(name, 0) > 0, f"kernel {name} was never launched on the main path")
             kernels[name]["launches"] = launches[name]

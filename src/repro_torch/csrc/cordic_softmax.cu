@@ -29,6 +29,7 @@
 #include <stdint.h>
 
 #include "cordic.cuh"
+#include "xla_sum.cuh"
 
 namespace {
 
@@ -50,12 +51,11 @@ __device__ __forceinline__ void softmax_row_regs(const float* __restrict__ xr,
   if (live) orow[lane] = __fdiv_rn(e, s);
 }
 
-// A row of 32 < cols <= 1024 values, in the reference's order of additions:
-// XLA's CPU compiler sums windows of 32 columns, the zero padding split
-// between both ends (the low end takes the smaller half), each from 0 in
-// column order, then the window sums from 0 in order.  Lane i holds column
-// 32 j + i - lo of window j; lane 0 adds the window's values in lane order
-// (a padding zero leaves a non-negative sum as it is).
+// A row of 32 < cols <= 1024 values, in the reference's order of additions
+// (xla_sum.cuh): windows of 32 columns, the zero padding split between both
+// ends, each from 0 in column order, then the window sums from 0 in order.
+// Lane i holds column 32 j + i - lo of window j; lane 0 adds the window's
+// values in lane order (a padding zero leaves a non-negative sum as it is).
 __device__ __forceinline__ void softmax_row_windows(const float* __restrict__ xr,
                                                     float* __restrict__ orow,
                                                     int cols, int lane) {
@@ -63,11 +63,10 @@ __device__ __forceinline__ void softmax_row_windows(const float* __restrict__ xr
   for (int c = lane; c < cols; c += 32) m = fmaxf(m, xr[c]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-  const int windows = (cols + 31) / 32;
-  const int lo = (windows * 32 - cols) / 2;
+  const xla_sum::Split sp = xla_sum::split(cols);
   float s = 0.0f;  // lane 0's sum of the window sums
-  for (int j = 0; j < windows; ++j) {
-    const int c = 32 * j + lane - lo;
+  for (int j = 0; j < sp.windows; ++j) {
+    const int c = xla_sum::kSumWindow * j + lane - sp.lo;
     const float e = c >= 0 && c < cols ? cordic::cordic_exp(__fsub_rn(xr[c], m)) : 0.0f;
     float w = 0.0f;
     for (int i = 0; i < 32; ++i) w = __fadd_rn(w, __shfl_sync(kFull, e, i));

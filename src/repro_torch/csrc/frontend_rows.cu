@@ -16,12 +16,13 @@
 // reads 32 neighbouring columns of m (one coalesced load).
 //
 // row_sum: the sum of each row in the reduction order of the reference's
-// CPU compiler (XLA splits a long reduction into windows): a row of n <= 32
-// values is summed left to right from 0; a longer one is cut into
-// ceil(n / 32) windows of width w = ceil(n / ceil(n / 32)) (the last one
-// zero-padded), each window summed left to right, and the window sums are
-// reduced again by the same rule.  One block per row, one thread per
-// window of the first level; thread 0 runs the short later levels.
+// CPU compiler (xla_sum.cuh): a row of n <= 32 values is summed left to
+// right from its first value; a longer one is cut into windows of exactly
+// 32, the zero padding split between both ends, each window summed from 0,
+// and the window sums are reduced again by the same rule.  One block per
+// row, one thread per window of the first level; thread 0 runs the short
+// later levels in place (window c of a level reads from index 32 c - 15 on,
+// past every sum written before it).
 //
 // What bounds them on the H100: at the serving shapes (8 windows: 408 x 513
 // @ 513 x 64 for the mel projection, rows of 12 to 1096 values for the
@@ -29,15 +30,11 @@
 // dependence of each fixed-order sum, not by bytes or operations.
 #include <cuda_runtime.h>
 
+#include "xla_sum.cuh"
+
 namespace {
 
 constexpr int kMaxWindows = 1024;  // first-level windows a block holds
-
-__host__ __device__ __forceinline__ int window_width(int n) {
-  if (n <= 32) return n;
-  const int k = (n + 31) / 32;
-  return (n + k - 1) / k;
-}
 
 __global__ void project_rows_kernel(const float* __restrict__ x,
                                     const float* __restrict__ m,
@@ -57,29 +54,28 @@ __global__ void row_sum_kernel(const float* __restrict__ x,
                                float* __restrict__ out, int n) {
   __shared__ float sums[kMaxWindows];
   const float* xr = x + (size_t)blockIdx.x * n;
-  const int w = window_width(n);
-  const int windows = (n + w - 1) / w;
-  for (int c = threadIdx.x; c < windows; c += blockDim.x) {
-    float acc = 0.0f;
-    for (int i = c * w; i < c * w + w; ++i)
-      acc = __fadd_rn(acc, i < n ? xr[i] : 0.0f);
-    sums[c] = acc;
+  xla_sum::Split sp = xla_sum::split(n);
+  if (sp.windows == 1) {  // left to right from the first value
+    if (threadIdx.x == 0) {
+      float acc = xr[0];
+      for (int i = 1; i < n; ++i) acc = __fadd_rn(acc, xr[i]);
+      out[blockIdx.x] = acc;
+    }
+    return;
   }
+  for (int c = threadIdx.x; c < sp.windows; c += blockDim.x)
+    sums[c] = xla_sum::window_sum(xr, n, sp.lo, c);
   __syncthreads();
   if (threadIdx.x != 0) return;
-  int count = windows;
-  while (count > 1) {
-    const int w2 = window_width(count);
-    const int next = (count + w2 - 1) / w2;
-    for (int c = 0; c < next; ++c) {
-      float acc = 0.0f;
-      for (int i = c * w2; i < c * w2 + w2; ++i)
-        acc = __fadd_rn(acc, i < count ? sums[i] : 0.0f);
-      sums[c] = acc;  // windows before c * w2 are already consumed
-    }
-    count = next;
+  int count = sp.windows;
+  while (count > xla_sum::kSumWindow) {
+    sp = xla_sum::split(count);
+    for (int c = 0; c < sp.windows; ++c) sums[c] = xla_sum::window_sum(sums, count, sp.lo, c);
+    count = sp.windows;
   }
-  out[blockIdx.x] = sums[0];
+  float acc = sums[0];
+  for (int i = 1; i < count; ++i) acc = __fadd_rn(acc, sums[i]);
+  out[blockIdx.x] = acc;
 }
 
 }  // namespace
@@ -99,8 +95,7 @@ extern "C" int project_rows_f32(const void* x, const void* m, void* out, int R,
 // x: (R, n) fp32 contiguous, out: (R,) fp32; n <= 32 * kMaxWindows
 extern "C" int row_sum_f32(const void* x, void* out, int R, int n, void* stream) {
   if (R <= 0) return cudaSuccess;
-  if (n <= 0 || (n + window_width(n) - 1) / window_width(n) > kMaxWindows)
-    return cudaErrorInvalidValue;
+  if (n <= 0 || xla_sum::split(n).windows > kMaxWindows) return cudaErrorInvalidValue;
   row_sum_kernel<<<R, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), n);
   return cudaGetLastError();

@@ -49,14 +49,16 @@ _F = ctypes.c_float
 #: C signature of every entry point: (argtypes) -> int (a cudaError_t)
 SIGNATURES = {
     # x, w, acc, out, x_scale, w_scale, bias, clip, has_clip, relu,
-    # xs_per_row, ws_per_col, M, K, N, stream
+    # xs_per_row, ws_per_col, M, K, N, workspace, counters, bm,
+    # chunks_per_block, splits, stream
     "quant_matmul_i8": (
-        _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P
     ),
-    # x, w, acc, out, x_scale, w_scale, bias, clip, has_clip, relu,
-    # xs_per_row, ws_per_col, B, L, Cin, Cout, K, stream
+    # x, w, w packed, acc, out, x_scale, w_scale, bias, clip, has_clip, relu,
+    # xs_per_row, ws_per_col, B, L, Cin, Cout, K, bm, bn, stages, stream
     "conv1d_fused_i8": (
-        _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P,
     ),
     # x, out, rows, cols, stream
     "cordic_softmax_f32": (_P, _P, _I, _I, _P),

@@ -10,10 +10,16 @@ tap products accumulate exactly in int32, then the K1 epilogue runs:
 No im2col tensor exists.  ``return_acc=True`` returns the int32
 accumulators.
 
-On a CUDA tensor :func:`conv1d_fused_q` launches ``csrc/conv1d_fused.cu``;
-on a CPU tensor it runs :func:`conv1d_fused_q_plain`.
+On a CUDA tensor :func:`conv1d_fused_q` launches ``csrc/conv1d_fused.cu``
+(int8 tensor cores for Cin >= 4, with the tile :func:`conv_tiling` picks
+and the weight packed K-major once per weight tensor by
+:func:`packed_weight`); on a CPU tensor it runs
+:func:`conv1d_fused_q_plain`.
 """
 from __future__ import annotations
+
+import dataclasses
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +30,69 @@ from repro_torch.kernels.quant_matmul import epilogue
 
 #: largest kernel width the CUDA kernel stages in shared memory
 MAX_TAPS = 31
+#: streaming multiprocessors of the H100 the tiles are sized for
+SMS = 132
+#: shared memory one block may use on the H100 (bytes)
+SMEM_LIMIT = 232_448
+#: K2's block tiles (output rows, output channels) in order of preference:
+#: 64-row tiles re-read the weight slice from L2 half as often as 32-row
+#: ones, and 32-channel tiles keep more blocks in flight
+#: (the ``tile_sweep`` lines of ``chip_smoke.py``)
+TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
+#: input channels a pipeline stage holds, and the bytes a staged row takes
+STAGE_CHANNELS, STAGE_ROW_BYTES = 32, 48
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTiling:
+    """Launch configuration of kernel K2 for one shape.  ``bm`` x ``bn`` is
+    a block's tile of output rows x output channels and ``stages`` its ring
+    of staged 32-channel chunks (tensor-core path, Cin >= 4); the
+    Cin < 4 path takes neither (``bm = bn = stages = 0``)."""
+
+    bm: int
+    bn: int
+    stages: int
+    blocks: int
+    smem_bytes: int
+
+
+def conv_tiling(b: int, l: int, cin: int, cout: int, k: int) -> ConvTiling:
+    """The first tile of :data:`TILES` that puts about two blocks on every SM
+    (else the one with the most blocks); a stage for every 32-channel chunk
+    of Cin (two to four, so that a layer's loads are all in flight at once)
+    where the blocks fit in one wave of about two a SM, else two stages (a
+    larger ring then only costs resident blocks); within shared memory."""
+    if cin < 4:
+        return ConvTiling(0, 0, 0, -(-b * l * -(-cout // 4) // 256), 0)
+    options = [(bm, bn, b * -(-l // bm) * -(-cout // bn)) for bm, bn in TILES]
+    bm, bn, blocks = next((o for o in options if o[2] >= 2 * SMS),
+                          max(options, key=lambda o: o[2]))
+    per_stage = (bm + k - 1 + k * bn) * STAGE_ROW_BYTES
+    stages = 2 if blocks > 2 * SMS else max(2, min(4, -(-cin // STAGE_CHANNELS)))
+    while stages > 2 and stages * per_stage > SMEM_LIMIT:
+        stages -= 1
+    return ConvTiling(bm, bn, stages, blocks, stages * per_stage)
+
+
+_packed: dict[int, tuple] = {}
+
+
+def packed_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """``w_q`` (K, Cin, Cout) as (K, Cout, Cin), Cin contiguous: the layout
+    the tensor cores take.  Packed once per weight tensor and kept while the
+    tensor lives and is not written to (its version counter), so serving
+    calls reuse it and launch nothing extra.  An inference tensor has no
+    version counter and is packed anew on every call."""
+    if w_q.is_inference():
+        return w_q.permute(0, 2, 1).contiguous()
+    key = id(w_q)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is w_q and hit[1] == w_q._version:
+        return hit[2]
+    wp = w_q.permute(0, 2, 1).contiguous()
+    _packed[key] = (weakref.ref(w_q, lambda _, k=key: _packed.pop(k, None)), w_q._version, wp)
+    return wp
 
 
 def conv_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -101,11 +170,12 @@ def conv1d_fused_q(
             x_q, w_q, x_scale, w_scale, bias, act=act, clip=clip, return_acc=return_acc
         )
     _check_args(x_q, w_q, x_scale, w_scale, bias, act)
-    x_q, w_q = x_q.contiguous(), w_q.contiguous()
     b, l, cin = x_q.shape
     k, _, cout = w_q.shape
     if k > MAX_TAPS:
         raise ValueError(f"kernel width {k} exceeds the CUDA kernel's {MAX_TAPS}")
+    wp = packed_weight(w_q) if cin >= 4 else None
+    x_q, w_q = x_q.contiguous(), w_q.contiguous()
     acc = out = xs = ws = bv = None
     if return_acc:
         acc = torch.empty((b, l, cout), dtype=torch.int32, device=x_q.device)
@@ -116,17 +186,18 @@ def conv1d_fused_q(
         if bias is not None:
             bv = bias.to(torch.float32).reshape(-1).contiguous()
     if b and l and cout:
+        tile = conv_tiling(b, l, cin, cout, k)
         lib = backend.library()
         with torch.cuda.device(x_q.device):
             err = lib.conv1d_fused_i8(
-                x_q.data_ptr(), w_q.data_ptr(), backend.ptr(acc), backend.ptr(out),
-                backend.ptr(xs), backend.ptr(ws), backend.ptr(bv),
+                x_q.data_ptr(), w_q.data_ptr(), backend.ptr(wp), backend.ptr(acc),
+                backend.ptr(out), backend.ptr(xs), backend.ptr(ws), backend.ptr(bv),
                 0.0 if clip is None else float(clip),
                 int(clip is not None and not return_acc),
                 int(act == "relu" and not return_acc),
                 int(xs is not None and xs.numel() == b and b > 1),
                 int(ws is not None and ws.numel() == cout and cout > 1),
-                b, l, cin, cout, k, backend.stream_ptr(x_q),
+                b, l, cin, cout, k, tile.bm, tile.bn, tile.stages, backend.stream_ptr(x_q),
             )
         backend.check(err, "conv1d_fused_i8")
         conv1d_fused_q.launches += 1

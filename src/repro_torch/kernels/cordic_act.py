@@ -25,7 +25,7 @@ golden artifacts pin): ``jnp.exp2(k)`` is ``exp(ln2 * k)`` with XLA's
 is evaluated as ``v * float32(1 / ln2)``; and XLA's fused loops contract
 ``1 + t*t`` (tanh doubling) and ``v + 0.044715 v^3`` (gelu) into FMAs.
 Row sums run left to right up to 32 values, and in XLA's windows of 32
-beyond (:func:`xla_row_sum`).
+beyond (``kernels/xla_sum.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.f32_math import INV_LN2_F32, LN2_F32, exp2_f32, fma_f32, relu
 from repro_torch.kernels import backend
+from repro_torch.kernels.xla_sum import SUM_WINDOW, xla_row_sum
 
 F = 16  # fraction bits (Q15.16)
 ONE = 1 << F
@@ -183,33 +184,8 @@ def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
 cordic_activation.launches = 0
 
 
-#: XLA's CPU compiler cuts a reduction of more than 32 values into windows
-#: of 32, with the zero padding split between both ends (the low end takes
-#: the smaller half), sums each window from 0 in order, and reduces the
-#: window sums the same way
-SUM_WINDOW = 32
 #: the widest row kernel K3 takes: its window sums fit one level
 K3_MAX_COLS = SUM_WINDOW * SUM_WINDOW
-
-
-def xla_row_sum(e: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (kept, as size 1) in the reference's order of
-    additions (``jnp.sum`` on the CPU): left to right for up to 32 values,
-    else through windows of 32 as :data:`SUM_WINDOW` describes."""
-    while e.shape[-1] > SUM_WINDOW:
-        n = e.shape[-1]
-        windows = -(-n // SUM_WINDOW)
-        pad = windows * SUM_WINDOW - n
-        e = torch.nn.functional.pad(e, (pad // 2, pad - pad // 2))
-        e = e.reshape(*e.shape[:-1], windows, SUM_WINDOW)
-        acc = torch.zeros(e.shape[:-1], dtype=torch.float32, device=e.device)
-        for i in range(SUM_WINDOW):
-            acc = acc + e[..., i]
-        e = acc
-    s = e[..., 0:1]
-    for j in range(1, e.shape[-1]):
-        s = s + e[..., j : j + 1]
-    return s
 
 
 def cordic_softmax_plain(x: torch.Tensor) -> torch.Tensor:

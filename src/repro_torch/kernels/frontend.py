@@ -10,11 +10,11 @@ count.  The port therefore fixes the order of every sum itself:
 
 * :func:`project_rows` (``(R, K) @ (K, N)``) sums over ``k`` in ascending
   order, each product and each sum rounded on its own;
-* :func:`row_sum` sums each row in the window order of the reference's CPU
-  compiler (rows of up to 32 values left to right; longer rows in
-  ``ceil(n / 32)`` equal windows, reduced again by the same rule), which
-  gives the reference's bits wherever a row's length is at most 64 or a
-  multiple of 32 (the normalisation of the zcr, psd and mel128 rows).
+* :func:`row_sum` sums each row in the order of the reference's CPU
+  compiler (``jnp.sum``): left to right up to 32 values, and beyond in
+  XLA's windows of exactly 32, level after level (``kernels/xla_sum.py``,
+  the rule the softmax's plain twin shares), which gives the reference's
+  bits at every row length up to :data:`MAX_ROW`.
 
 On a CUDA tensor each launches its kernel (``csrc/frontend_rows.cu``); on a
 CPU tensor it runs its plain version, which is elementwise PyTorch in the
@@ -26,17 +26,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend
+from repro_torch.kernels.xla_sum import xla_row_sum
 
 #: rows the CUDA row_sum takes are at most this long (1,024 first windows)
 MAX_ROW = 32 * 1024
-
-
-def window_width(n: int) -> int:
-    """Width of the windows a row of ``n`` values is cut into."""
-    if n <= 32:
-        return n
-    k = -(-n // 32)
-    return -(-n // k)
 
 
 def _check_2d(x: torch.Tensor, name: str) -> None:
@@ -93,24 +86,11 @@ project_rows.launches = 0
 
 
 def row_sum_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`row_sum`: each window summed left to right from
-    0 (the last one zero-padded), level after level."""
+    """Plain twin of :func:`row_sum`: :func:`xla_row_sum` over each row."""
     _check_2d(x, "x")
     if x.shape[1] == 0:
         raise ValueError("row_sum needs rows of at least one value")
-    while True:
-        rows, n = x.shape
-        w = window_width(n)
-        windows = -(-n // w)
-        if windows * w != n:
-            x = torch.cat([x, x.new_zeros((rows, windows * w - n))], dim=1)
-        parts = x.reshape(rows, windows, w)
-        acc = torch.zeros((rows, windows), dtype=torch.float32, device=x.device)
-        for i in range(w):
-            acc = acc + parts[:, :, i]
-        if windows == 1:
-            return acc[:, 0]
-        x = acc
+    return xla_row_sum(x)[:, 0]
 
 
 def row_sum(x: torch.Tensor) -> torch.Tensor:

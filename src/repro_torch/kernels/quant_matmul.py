@@ -9,12 +9,15 @@ bias add into one FMA (:func:`epilogue`).
 ``return_acc=True`` returns the raw int32 accumulators.
 
 On a CUDA tensor :func:`quant_matmul` launches ``csrc/quant_matmul.cu``
-(split-K ``__dp4a`` partial sums into an int32 scratch, then the epilogue);
-on a CPU tensor it runs :func:`quant_matmul_plain`.  Integer addition is
-exact and associative, so the kernel's accumulators equal the plain
-version's bit for bit whatever order the blocks finish in.
+once (int8 tensor cores; K split as :func:`qmm_tiling` says, the partial
+tiles added into a self-cleaning workspace whose last block runs the
+epilogue); on a CPU tensor it runs :func:`quant_matmul_plain`.  Integer
+addition is exact and associative, so the kernel's accumulators equal the
+plain version's bit for bit whatever order the blocks finish in.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -54,6 +57,60 @@ def epilogue(
     if clip is not None:
         y = minimum(y, clip)
     return y
+
+
+#: streaming multiprocessors of the H100 the splits are sized for
+SMS = 132
+#: depth of one chunk of K, and output columns a block takes
+CHUNK_K, BLOCK_N = 256, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmTiling:
+    """Launch configuration of kernel K1: ``bm`` rows of x a block takes
+    (8 or 64), the grid ``(m_tiles, n_tiles, splits)`` and the chunks of K
+    each split covers.  ``splits > 1`` needs a zeroed workspace of
+    ``M * N`` int32 and ``m_tiles * n_tiles`` counters."""
+
+    bm: int
+    m_tiles: int
+    n_tiles: int
+    splits: int
+    chunks_per_block: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+
+def qmm_tiling(m: int, k: int, n: int) -> QmmTiling:
+    """Split K only as far as it takes to put about one block on each SM:
+    at least :data:`SMS` blocks where K has that many chunks (dense0: 137
+    splits of one chunk), none where the output tiles already fill the
+    card (the im2col sign-off shapes)."""
+    bm = 8 if m <= 8 else 64
+    m_tiles, n_tiles = -(-m // bm), -(-n // BLOCK_N)
+    chunks = max(1, -(-k // CHUNK_K))
+    want = -(-SMS // (m_tiles * n_tiles))
+    per_block = max(1, chunks // want)
+    return QmmTiling(bm, m_tiles, n_tiles, -(-chunks // per_block), per_block)
+
+
+#: (device, stream) -> (int32 workspace, int32 tile counters), both zero
+#: between calls: each split call leaves them as it found them
+_scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_scratch(device: torch.device, stream: int, ints: int, tiles: int):
+    key = (device, stream)
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < ints or counters.numel() < tiles:
+        size = max(ints, 0 if ws is None else ws.numel())
+        count = max(tiles, 0 if counters is None else counters.numel())
+        ws = torch.zeros(size, dtype=torch.int32, device=device)
+        counters = torch.zeros(count, dtype=torch.int32, device=device)
+        _scratch[key] = (ws, counters)
+    return ws, counters
 
 
 def _check_args(x_q, w_q, x_scale, w_scale, bias, act):
@@ -115,27 +172,37 @@ def quant_matmul(
     x_q, w_q = x_q.contiguous(), w_q.contiguous()
     m, k = x_q.shape
     n = w_q.shape[1]
-    acc = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
-    out = xs = ws = b = None
-    if not return_acc:
+    acc = out = xs = ws = b = None
+    if return_acc:
+        acc = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
+    else:
         out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
         xs = x_scale.to(torch.float32).reshape(-1).contiguous()
         ws = w_scale.to(torch.float32).reshape(-1).contiguous()
         if bias is not None:
             b = bias.to(torch.float32).reshape(-1).contiguous()
     if m and n:
+        tile = qmm_tiling(m, k, n)
+        stream = backend.stream_ptr(x_q)
+        work = counters = None
+        if tile.splits > 1:
+            work, counters = _split_scratch(x_q.device, stream, m * n, tile.m_tiles * tile.n_tiles)
         lib = backend.library()
         with torch.cuda.device(x_q.device):
             err = lib.quant_matmul_i8(
-                x_q.data_ptr(), w_q.data_ptr(), acc.data_ptr(), backend.ptr(out),
+                x_q.data_ptr(), w_q.data_ptr(), backend.ptr(acc), backend.ptr(out),
                 backend.ptr(xs), backend.ptr(ws), backend.ptr(b),
                 0.0 if clip is None else float(clip),
                 int(clip is not None and not return_acc),
                 int(act == "relu" and not return_acc),
                 int(xs is not None and xs.numel() == m and m > 1),
                 int(ws is not None and ws.numel() == n and n > 1),
-                m, k, n, backend.stream_ptr(x_q),
+                m, k, n, backend.ptr(work), backend.ptr(counters),
+                tile.bm, tile.chunks_per_block, tile.splits, stream,
             )
+        if err != 0:
+            # a launch that failed may have left partial sums behind
+            _scratch.pop((x_q.device, stream), None)
         backend.check(err, "quant_matmul_i8")
         quant_matmul.launches += 1
     return acc if return_acc else out

@@ -21,7 +21,7 @@ import numpy as np  # noqa: E402
 from repro.data import features as jfeatures  # noqa: E402
 from repro.data import features_jax  # noqa: E402
 from repro_torch.data import acoustic, features, features_torch  # noqa: E402
-from repro_torch.kernels import frontend  # noqa: E402
+from repro_torch.kernels import frontend, xla_sum  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -110,10 +110,12 @@ def test_batch_entry_point_and_validation():
     assert features_torch.PARITY_ATOL == features_jax.PARITY_ATOL
 
 
-@pytest.mark.parametrize("n", [1, 12, 33, 51, 64, 96, 128, 512, 1024])
+@pytest.mark.parametrize(
+    "n", [1, 12, 33, 51, 64, 96, 100, 128, 512, 1020, 1024, 1096, 4104, 32768])
 def test_row_sum_has_the_reference_reduction_bits(n):
-    """Rows of at most 64 values, or of a multiple of 32, sum to XLA's CPU
-    bits; the mean is that sum times float32(1/n)."""
+    """Rows of every length up to ``MAX_ROW`` sum to XLA's CPU bits (windows
+    of exactly 32, the padding split between both ends, level after level);
+    the mean is that sum times float32(1/n)."""
     rng = np.random.default_rng(n)
     x = (rng.standard_normal((5, n)) * rng.uniform(0.1, 10, (5, 1))).astype(np.float32)
     got = frontend.row_sum(torch.from_numpy(x)).numpy()
@@ -122,8 +124,20 @@ def test_row_sum_has_the_reference_reduction_bits(n):
     assert _bits_equal(np.asarray(jax.jit(lambda a: jnp.mean(a, axis=1))(x)), mean)
 
 
+def test_normalize_has_the_reference_bits_at_mfcc20_width():
+    """The zero-mean, unit-RMS step over 1,096-value mfcc20 rows (two row
+    means of 35 windows each) equals the reference's bitwise."""
+    rng = np.random.default_rng(1096)
+    v = (rng.standard_normal((64, 1096)) * rng.uniform(0.01, 30, (64, 1))
+         + rng.uniform(-5, 5, (64, 1))).astype(np.float32)
+    want = np.asarray(jax.jit(features_jax._normalize)(v))
+    assert _bits_equal(want, features_torch._normalize(torch.from_numpy(v)).numpy())
+
+
 def test_row_sum_windows_and_projection_order():
-    assert [frontend.window_width(n) for n in (1, 32, 33, 64, 65, 1096)] == [1, 32, 17, 32, 22, 32]
+    # (windows, low padding) of one level: windows of exactly 32 past 32 values
+    assert [xla_sum.window_split(n) for n in (1, 32, 33, 64, 65, 1096, 32768)] == [
+        (1, 0), (1, 0), (2, 15), (2, 0), (3, 15), (35, 12), (1024, 0)]
     rng = np.random.default_rng(0)
     x = rng.standard_normal((7, 1096)).astype(np.float32)
     np.testing.assert_allclose(frontend.row_sum(torch.from_numpy(x)).numpy(),

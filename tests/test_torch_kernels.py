@@ -27,6 +27,8 @@ from repro.kernels.quant_matmul import quant_matmul as j_qmm  # noqa: E402
 from repro_torch.kernels import cordic_act as tcordic  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import conv1d_fused as tconv  # noqa: E402
+from repro_torch.kernels import quant_matmul as tqmm  # noqa: E402
 from repro_torch.kernels.conv1d_fused import (  # noqa: E402
     conv1d_fused_q,
 )
@@ -175,6 +177,87 @@ def test_conv1d_validates_arguments():
         conv1d_fused_q(x, w, torch.ones(1), torch.ones(5))
     with pytest.raises(ValueError, match="x_scale"):
         conv1d_fused_q(x, w[:, :3], torch.ones(3), torch.ones(5))
+
+
+#: (B, L, Cin, Cout, K): the serving convs at 8 slots (conv0-2, pruned
+#: conv2), then the edge shapes the card tests cover
+CONV_TILING_SHAPES = [
+    (8, 1096, 1, 64, 3), (8, 548, 64, 128, 3), (8, 274, 128, 256, 3), (8, 274, 128, 64, 3),
+    (2, 1, 4, 8, 1), (2, 63, 5, 70, 5), (3, 77, 12, 20, 1), (2, 100, 200, 33, 3),
+    (1, 1096, 33, 7, 5), (2, 30, 200, 70, 7), (1, 40, 1024, 1024, tconv.MAX_TAPS),
+]
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k", CONV_TILING_SHAPES)
+def test_conv_tiling_fits_shared_memory(b, l, cin, cout, k):
+    """Every shape gets a tile under the block's 227 KB of shared memory, with
+    the kernel's own stage formula; the serving convs fill the 132 SMs."""
+    t = tconv.conv_tiling(b, l, cin, cout, k)
+    assert t.smem_bytes <= tconv.SMEM_LIMIT == 232_448
+    if cin < 4:
+        assert (t.bm, t.bn, t.stages, t.smem_bytes) == (0, 0, 0, 0)
+        assert t.blocks == -(-b * l * -(-cout // 4) // 256)
+    else:
+        assert (t.bm, t.bn) in tconv.TILES and t.stages in (2, 3, 4)
+        assert t.smem_bytes == t.stages * (t.bm + k - 1 + k * t.bn) * tconv.STAGE_ROW_BYTES
+        assert t.blocks == b * -(-l // t.bm) * -(-cout // t.bn)
+    if b == 8:
+        assert t.blocks >= tconv.SMS
+
+
+def test_conv_tiling_constants_match_the_cuda_source():
+    src = (CSRC / "conv1d_fused.cu").read_text()
+    cc = int(re.search(r"constexpr int kCC = (\d+);", src).group(1))
+    assert cc == tconv.STAGE_CHANNELS
+    assert "constexpr int kStride = kCC + 16;" in src and cc + 16 == tconv.STAGE_ROW_BYTES
+    assert '#include "imma.cuh"' in src
+    assert '#include "imma.cuh"' in (CSRC / "quant_matmul.cu").read_text()
+    qsrc = (CSRC / "quant_matmul.cu").read_text()
+    assert int(re.search(r"constexpr int kKC = (\d+);", qsrc).group(1)) == tqmm.CHUNK_K
+    assert int(re.search(r"constexpr int kBN = (\d+);", qsrc).group(1)) == tqmm.BLOCK_N
+
+
+def test_packed_weight_is_k_major_and_cached():
+    """The tensor-core layout (K, Cout, Cin) read back by index is ``w_q``;
+    it is packed once per weight tensor and again after an in-place write."""
+    rng = np.random.default_rng(23)
+    w = torch.from_numpy(rng.integers(-128, 128, (3, 33, 70), dtype=np.int8))
+    wp = tconv.packed_weight(w)
+    assert wp.shape == (3, 70, 33) and wp.is_contiguous()
+    for t, c, o in ((0, 0, 0), (2, 32, 69), (1, 17, 5), (2, 0, 69)):
+        assert wp[t, o, c] == w[t, c, o]
+    assert torch.equal(wp.permute(0, 2, 1), w)
+    assert tconv.packed_weight(w) is wp
+    w[1, 17, 5] = -w[1, 17, 5] - 1
+    again = tconv.packed_weight(w)
+    assert again is not wp and again[1, 5, 17] == w[1, 17, 5]
+    view = w[:, :, ::2]
+    assert torch.equal(tconv.packed_weight(view).permute(0, 2, 1), view)
+    with torch.inference_mode():
+        frozen = torch.zeros((1, 4, 8), dtype=torch.int8)
+    assert torch.equal(tconv.packed_weight(frozen), frozen.permute(0, 2, 1))
+
+
+@pytest.mark.parametrize("m,k,n,bm,splits", [
+    (8, 35072, 64, 8, 137),     # dense0
+    (8, 8704, 64, 8, 34),       # dense0, pruned
+    (8, 64, 2, 8, 1),           # dense1
+    (64, 8704, 64, 64, 34),
+    (9, 37, 5, 64, 1),
+    (1, 1, 1, 8, 1),
+    (8768, 3, 64, 64, 1),       # the im2col sign-off layers
+    (4384, 192, 128, 64, 1),
+    (2192, 384, 256, 64, 1),
+    (1, 0, 4, 8, 1),
+])
+def test_qmm_tiling_splits_k_only_to_fill_the_card(m, k, n, bm, splits):
+    t = tqmm.qmm_tiling(m, k, n)
+    assert (t.bm, t.splits) == (bm, splits)
+    assert t.m_tiles * t.bm >= m and t.n_tiles * tqmm.BLOCK_N >= n
+    span = t.chunks_per_block * tqmm.CHUNK_K
+    assert t.splits * span >= k and (t.splits - 1) * span < max(k, 1)  # no empty split
+    if t.m_tiles * t.n_tiles < tqmm.SMS and k >= tqmm.SMS * tqmm.CHUNK_K:
+        assert t.blocks >= tqmm.SMS
 
 
 # ---------------------------------------------------------------------------

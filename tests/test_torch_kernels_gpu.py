@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card: K1-K3,
+"""The CUDA kernels against their plain PyTorch versions, on the card: K1-K3
+(K1 and K2 on outputs and accumulators over ragged M, Cin, L and K, with
+per-tensor and per-sample scales and clip, and K1's split-K workspace left
+clean),
 K3b in all seven modes (on every angle the unit can see, at ragged sizes
 and on views at odd offsets), the front-end's fixed-order primitives, and
 the row independence of the on-device front-end.
@@ -21,6 +24,7 @@ from repro_torch.data import features_torch  # noqa: E402
 from repro_torch.data.features import FEATURE_DIMS, N_SAMPLES  # noqa: E402
 from repro_torch.kernels import cordic_act as tcordic  # noqa: E402
 from repro_torch.kernels import frontend  # noqa: E402
+from repro_torch.kernels import quant_matmul as tqmm  # noqa: E402
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q, conv1d_fused_q_plain  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain  # noqa: E402
 
@@ -78,6 +82,75 @@ def test_conv1d_kernel_vs_plain_on_card(card, b, l, cin, cout, k):
     got = conv1d_fused_q(x, w, xs, ws, bias, act="relu")
     torch.cuda.synchronize()
     assert _bits_equal(got, conv1d_fused_q_plain(x, w, xs, ws, bias, act="relu"))
+
+
+def _epilogue_cases(x, w, rng, card, per_row, shape):
+    """(x_scale, w_scale, bias) on the card: x_scale per row or one value."""
+    n = w.shape[-1]
+    xs = rng.uniform(1e-3, 1e-1, shape if per_row else ()).astype(np.float32)
+    ws = rng.uniform(1e-3, 1e-1, (n,)).astype(np.float32)
+    bias = (rng.standard_normal(n) * 3).astype(np.float32)
+    return [torch.from_numpy(np.asarray(a)).to(card) for a in (xs, ws, bias)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 8768])
+@pytest.mark.parametrize("k,n", [(8704, 64), (37, 5), (64, 2), (384, 256)])
+def test_quant_matmul_edges_on_card(card, m, k, n):
+    """Rows on both sides of the 8-row and 64-row tiles, split and unsplit
+    K, ragged K and N (byte staging), per-row and per-tensor x scales."""
+    rng = np.random.default_rng(m * 7 + k + n)
+    x, w = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)).to(card)
+            for s in ((m, k), (k, n)))
+    per_row = m % 2 == 0
+    xs, ws, b = _epilogue_cases(x, w, rng, card, per_row, (m, 1))
+    ws = ws.reshape(1, n)
+    assert _bits_equal(quant_matmul(x, w, xs, ws, return_acc=True),
+                       quant_matmul_plain(x, w, xs, ws, return_acc=True))
+    for kw in (dict(act="relu", clip=0.5), dict(act=None)):
+        got = quant_matmul(x, w, xs, ws, b, **kw)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, quant_matmul_plain(x, w, xs, ws, b, **kw)), kw
+
+
+@pytest.mark.gpu
+def test_quant_matmul_split_workspace_left_clean_on_card(card):
+    """A split call is one launch, and leaves its workspace and counters at
+    zero for the next call on the stream."""
+    rng = np.random.default_rng(35072)
+    assert tqmm.qmm_tiling(8, 35072, 64).splits > 1
+    for _ in range(3):
+        x, w = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)).to(card)
+                for s in ((8, 35072), (35072, 64)))
+        one = torch.ones((1, 1), device=card)
+        before = quant_matmul.launches
+        got = quant_matmul(x, w, one, one, return_acc=True)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches == before + 1
+        assert _bits_equal(got, quant_matmul_plain(x, w, one, one, return_acc=True))
+        work, counters = tqmm._scratch[(x.device, torch.cuda.current_stream().cuda_stream)]
+        assert not work.any() and not counters.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin", [1, 4, 5, 31, 32, 33, 200])
+@pytest.mark.parametrize("l", [1, 63, 274, 1096])
+def test_conv1d_edges_on_card(card, cin, l):
+    """The tensor-core path at ragged Cin (zero-padded in shared memory), L
+    on both sides of the row tiles and 'same' halos for K in {1, 3, 5}."""
+    k = (1, 3, 5)[(cin + l) % 3]
+    cout = (8, 70, 64, 33)[(cin * 3 + l) % 4]
+    b = 2
+    rng = np.random.default_rng(cin * 1000 + l)
+    x = torch.from_numpy(rng.integers(-128, 128, (b, l, cin), dtype=np.int8)).to(card)
+    w = torch.from_numpy(rng.integers(-128, 128, (k, cin, cout), dtype=np.int8)).to(card)
+    xs, ws, bias = _epilogue_cases(x, w, rng, card, l % 2 == 0, (b, 1))
+    assert _bits_equal(conv1d_fused_q(x, w, xs, ws, return_acc=True),
+                       conv1d_fused_q_plain(x, w, xs, ws, return_acc=True))
+    for kw in (dict(act="relu", clip=0.5), dict(act=None)):
+        got = conv1d_fused_q(x, w, xs, ws, bias, **kw)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, conv1d_fused_q_plain(x, w, xs, ws, bias, **kw)), kw
 
 
 @pytest.mark.gpu
@@ -149,7 +222,7 @@ def test_frontend_primitives_vs_plain_on_card(card):
         x = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(card)
         m = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(card)
         assert _bits_equal(frontend.project_rows(x, m), frontend.project_rows_plain(x, m))
-    for r, n in ((8, 1096), (4104, 51), (3, 1), (2, 65), (1, frontend.MAX_ROW)):
+    for r, n in ((8, 1096), (4104, 51), (3, 1), (2, 65), (5, 100), (3, 4104), (1, frontend.MAX_ROW)):
         x = torch.from_numpy(rng.standard_normal((r, n)).astype(np.float32)).to(card)
         assert _bits_equal(frontend.row_sum(x), frontend.row_sum_plain(x))
 

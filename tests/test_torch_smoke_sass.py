@@ -75,3 +75,42 @@ def test_per_value_counts_and_bound_terms():
     assert (ms, term) == (terms["issue"], "issue")
     assert chip_smoke.contract_bound_by(term) == "operations"
     assert chip_smoke.contract_bound_by("bytes") == "bytes"
+
+
+W8A8_LISTING = """
+	code for sm_90a
+		Function : _ZN48_GLOBAL__N__a062d797_15_conv1d_fused_cu_c691eb6217conv1d_mma_kernelILi32ELi64ELb1EEEvNS_9ConvShapeEN4imma8EpilogueE
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                          /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR4][R4.64] ; /* 0x0000000004037fae */
+        /*0020*/                   LDGDEPBAR ;                                     /* 0x00000000000079af */
+        /*0030*/                   IMMA.16832.S8.S8 R8, R12.ROW, R16.COL, R8 ;     /* 0x000000100c087237 */
+        /*0040*/                   IMMA.16832.S8.S8 R20, R12.ROW, R18.COL, R20 ;   /* 0x000000120c147237 */
+        /*0050*/                   STG.E.64 desc[UR4][R6.64], R8 ;                 /* 0x0000000806007986 */
+        /*0060*/                   EXIT ;                                          /* 0x000000000000794d */
+		Function : _ZN48_GLOBAL__N__d296ab94_15_quant_matmul_cu_b465976110qmm_kernelILi8ELb1EEEvNS_8QmmShapeEN4imma8EpilogueE
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;       /* 0x0000000402047981 */
+        /*0010*/                   LDG.E.128.CONSTANT R8, desc[UR4][R2.64+0x40] ;  /* 0x0000400402087981 */
+        /*0020*/                   LDG.E.U8 R12, desc[UR4][R2.64] ;                /* 0x00000004020c7981 */
+        /*0030*/                   IMMA.16832.S8.S8 R8, R12.ROW, R16.COL, R8 ;     /* 0x000000100c087237 */
+        /*0040*/               @P1 RED.E.ADD.STRONG.GPU desc[UR4][R6.64], R8 ;     /* 0x000000080600798e */
+        /*0050*/                   ATOMG.E.EXCH.STRONG.GPU PT, R9, desc[UR4][R6.64], RZ ; /* 0x000000ff0609798e */
+        /*0060*/                   REDUX.SUM R10, R11 ;                            /* 0x000000000b0a73c4 */
+        /*0068*/               @P2 REDG.E.ADD.STRONG.GPU desc[UR4][R6.64], R9 ;    /* 0x000000090600798e */
+        /*0070*/                   EXIT ;                                          /* 0x000000000000794d */
+		Function : sass_probe_copy
+        /*0000*/                   IMMA.16832.S8.S8 R8, R12.ROW, R16.COL, R8 ;     /* 0x000000100c087237 */
+"""
+
+
+def test_w8a8_mix_counts_tensor_core_load_and_atomic_instructions():
+    """K1's and K2's template instances by name and arguments; IMMA, cp.async
+    (LDGSTS), 16-byte loads, ATOMG and RED/REDG counted (not byte loads,
+    not the REDUX warp reduction), other functions left out."""
+    mix = chip_smoke.sass_w8a8_mix(W8A8_LISTING)
+    assert mix == {
+        "conv1d_mma_kernel<32,64,1>": {"IMMA": 2, "LDGSTS": 1, "LDG.E.128": 0, "ATOMG": 0, "RED": 0},
+        "qmm_kernel<8,1>": {"IMMA": 1, "LDGSTS": 0, "LDG.E.128": 2, "ATOMG": 1, "RED": 2},
+    }
+    assert chip_smoke.sass_mnemonic("@!P0 LDG.E.128 R4, desc[UR4][R2.64]") == "LDG.E.128"
