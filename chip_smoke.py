@@ -52,6 +52,21 @@ failure (no phase catches its own failure and carries on):
    a batched raw-window forward on the card (bitwise), with the card's
    features within ``PARITY_ATOL`` of the CPU's.
 
+6. the fleet (``FleetSupervisor``, two workers) over the int8 cell's
+   artifact and scene: the sequential and the lane fleet equal phase 5's
+   monolithic card run bitwise, scores and events, with every block of
+   every worker through K2 x3, K1 x2 and K3; a seeded fault plan (crash,
+   stall, kill; drop, corrupt, jitter) never escapes ``step`` and leaves
+   the streams it does not damage equal (a lossless plan: all of them); a
+   worker past ``max_rebuilds`` is reassigned losslessly and no revived
+   worker packs K2's weights again; a fleet abandoned mid-scene restores
+   from its state dir to the uninterrupted run; spawn and retire are
+   lossless; and the driver with ``--workers 2 --lanes threads --state-dir``
+   gives a plain run's events, and again when rerun on the same dir.  The
+   ``fleet`` line: windows/s and round p50 of monolith, sequential and lane
+   fleet, revive and ``restore_from_dir`` time (CUDA events), checkpoint
+   and WAL bytes a round, and the phase's seconds.
+
 Then K2 is timed at every tile and stage count it takes and K1 at other
 splits of K, and every serving call of both again with the card held busy
 before each call (the ``tile_sweep`` lines).  With ``--parent DIR``, K1's
@@ -1025,6 +1040,7 @@ def engine_phase(torch, np, dev, gpu_line):
     n_windows = N_STREAMS * int(SECONDS / features.WINDOW_S)
     kernels = (quant_matmul, conv1d_fused_q, cordic_softmax)
     launches = {k.__name__: 0 for k in kernels}
+    runs = {}
     for cell, kw in cells.items():
         engines = {
             d: MonitorEngine(params, cfg, n_streams=N_STREAMS, feature_kind="mfcc20",
@@ -1096,6 +1112,7 @@ def engine_phase(torch, np, dev, gpu_line):
             key = [[(e.onset_idx, e.offset_idx) for e in evs] for evs in events]
             check(key == [[(e.onset_idx, e.offset_idx) for e in evs] for evs in cpu_events],
                   f"{cell}: card events differ from the CPU run")
+        runs[cell] = (gpu.artifact, scores, events)
         n_events = sum(len(e) for e in events)
         print("engine " + json.dumps({
             "cell": cell, "flatten": (spec.flatten_after if "prune" in kw else cfg.flatten_size),
@@ -1108,7 +1125,7 @@ def engine_phase(torch, np, dev, gpu_line):
             "device_ops_per_run": len(ops),
             "gpu": gpu_line,
         }))
-    return launches
+    return launches, runs
 
 
 def ondevice_phase(torch, np, dev, gpu_line):
@@ -1215,6 +1232,339 @@ def ondevice_phase(torch, np, dev, gpu_line):
         "device_ops_per_run": len(ops), "gpu": gpu_line,
     }))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the fault-tolerant, durable fleet
+# ---------------------------------------------------------------------------
+
+FLEET_WORKERS = 2
+#: tracker thresholds inside the random detector's score range (0.09-0.35
+#: on this scene), so that tracks open and close and events are compared
+FLEET_TRACK = dict(ema_alpha=0.7, enter_threshold=0.2, exit_threshold=0.15, min_duration=1)
+
+
+def score_key(scores) -> list:
+    """Window scores as comparable tuples, in (stream, window) order: a
+    fleet returns a round's windows worker by worker."""
+    return sorted(dataclasses.astuple(w) for w in scores)
+
+
+def fleet_plan(np, faults_mod, n_rounds: int, *, lossy: bool):
+    """A seeded plan with a crash, a stall and a kill on the workers and
+    (``lossy``) a dropped and a corrupted chunk, always a jittered one."""
+    rng = np.random.default_rng(SEED)
+    rounds = sorted(int(r) for r in rng.choice(np.arange(1, n_rounds - 1), 6, replace=False))
+    streams = rng.permutation(N_STREAMS)
+    Fault = faults_mod.Fault
+    faults = [
+        Fault("raise_forward", rounds[0], worker=0, magnitude=2),
+        Fault("stall_forward", rounds[1], worker=1, magnitude=5.0),
+        Fault("kill_worker", rounds[2], worker=0),
+        Fault("jitter_chunk", rounds[3], stream=int(streams[0]), magnitude=0.4),
+    ]
+    if lossy:
+        faults += [Fault("drop_chunk", rounds[4], stream=int(streams[1])),
+                   Fault("corrupt_chunk", rounds[5], stream=int(streams[2]))]
+    return faults_mod.FaultPlan(faults, seed=SEED)
+
+
+def serve_events_timed(torch, engine, audio, chunks, *, upto=None, start=0, cursor=None):
+    """``serve`` with CUDA events around every ``step`` and the whole run;
+    ``upto=k`` stops mid-round k (its chunks pushed, no step), ``start`` and
+    ``cursor`` skip the rounds and chunks a restored fleet holds.  Returns
+    (scores, round ms of the steps that scored, run ms)."""
+    scores, rounds_ms, marks = [], [], []
+    cursor = [0] * N_STREAMS if cursor is None else [int(c) for c in cursor]
+    ordinals = [0] * N_STREAMS
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+
+    def step():
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = engine.step()
+        b.record()
+        if got:
+            marks.append((a, b))
+        scores.extend(got)
+        return got
+
+    for r, rnd in enumerate(chunks):
+        for s, lo, hi in rnd:
+            if ordinals[s] >= cursor[s]:
+                engine.push(s, audio[s, lo:hi])
+            ordinals[s] += 1
+        if r < start:
+            continue
+        if upto is not None and r >= upto:
+            break
+        step()
+    else:
+        while step():
+            pass
+    t1.record()
+    torch.cuda.synchronize()
+    rounds_ms = [a.elapsed_time(b) for a, b in marks]
+    return scores, rounds_ms, t0.elapsed_time(t1)
+
+
+def fleet_phase(torch, np, dev, gpu_line, artifact, mono_scores, mono_events):
+    """The fleet (``FleetSupervisor``) on the card over the engine phase's
+    int8 artifact and scene, with tracker thresholds that open tracks on
+    it: sequential and lane fleets equal the monolithic card run bitwise, a seeded fault plan is lossless where the reference
+    is, a worker past ``max_rebuilds`` is reassigned losslessly, a cold
+    restart from a state dir equals the uninterrupted run, spawn and retire
+    are lossless, and the driver's fleet flags serve on the card.  Every
+    block of every worker goes through K2 x3, K1 x2 and K3.  Returns the
+    launches of the sequential and lane fleets' runs."""
+    import contextlib
+    import io
+    import statistics as st
+    import tempfile
+
+    from repro_torch.data import features
+    from repro_torch.kernels import conv1d_fused as tconv
+    from repro_torch.kernels.conv1d_fused import conv1d_fused_q
+    from repro_torch.kernels.cordic_act import cordic_softmax
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.launch import monitor
+    from repro_torch.models import cnn1d
+    from repro_torch.serving import faults as faults_mod
+    from repro_torch.serving.durability import LocalFilesystem
+    from repro_torch.serving.engine import MonitorEngine, SanitizePolicy
+    from repro_torch.serving.quantized_params import save_artifact
+    from repro_torch.serving.supervisor import FleetSupervisor
+
+    t_phase = time.perf_counter()
+    cfg = cnn1d.CANONICAL
+    audio, chunks = make_audio(np, features)
+    kw = dict(feature_kind="mfcc20", batch_slots=SLOTS, device=dev, **FLEET_TRACK)
+    fleet_kw = dict(kw, sanitize=SanitizePolicy())
+    kernels = (quant_matmul, conv1d_fused_q, cordic_softmax)
+
+    def fleet(**extra):
+        return FleetSupervisor(artifact, cfg, n_streams=N_STREAMS, n_workers=FLEET_WORKERS,
+                               **fleet_kw, **extra)
+
+    def same(name, scores, events, streams=range(N_STREAMS)):
+        got = [t for t in score_key(scores) if t[0] in streams]
+        want = [t for t in want_scores if t[0] in streams]
+        check(got == want, f"fleet {name}: scores differ from the monolithic card run")
+        check([events[s] for s in streams] == [want_events[s] for s in streams],
+              f"fleet {name}: events differ from the monolithic card run")
+
+    def counted(name, sup, run):
+        for k in kernels:
+            k.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels}
+        blocks = sup.forward_calls
+        per_worker = [w.engine.forward_calls for w in sup.workers if w.alive]
+        want = {"quant_matmul": 2 * blocks, "conv1d_fused_q": 3 * blocks,
+                "cordic_softmax": blocks}
+        print(f"fleet_launches {name} blocks={blocks} per_worker={per_worker} "
+              f"counts={counts} expected={want}")
+        check(counts == want and blocks == sum(per_worker),
+              f"fleet {name}: kernel launches {counts} != {want}")
+        return out, counts
+
+    # the monolith once more, with the fleet's tracker: the same windows and
+    # probabilities as phase 5's card run
+    mono = MonitorEngine(artifact, cfg, n_streams=N_STREAMS, **kw)
+    m_scores, _, _ = serve_events_timed(torch, mono, audio, chunks)
+    check([t[:3] for t in score_key(m_scores)] == [t[:3] for t in score_key(mono_scores)],
+          "fleet: the monolith's probabilities differ from phase 5's card run")
+    want_scores, want_events = score_key(m_scores), mono.finalize()
+    check(sum(len(e) for e in want_events) > 0, "fleet: the monolith closed no track")
+    packs0 = tconv.packed_weight.packs
+    launches: dict[str, int] = {}
+
+    # 1. sequential and lane fleets equal the monolith, every block on the kernels
+    for name, lanes in (("sequential", None), ("lanes", "threads")):
+        sup = fleet(lanes=lanes)
+        (scores, _, _), counts = counted(
+            name, sup, lambda: serve_events_timed(torch, sup, audio, chunks))
+        same(name, scores, sup.finalize())
+        check(all(w.engine.artifact is artifact for w in sup.workers),
+              f"fleet {name}: a worker serves a copy of the artifact")
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        sup.close()
+
+    # 2. seeded fault plans, sequential and with lanes: never raise, lossless
+    #    where the reference is (the lossless plan: every stream)
+    n_rounds = len(chunks)
+    rebuilds = 0
+    for lossy in (True, False):
+        plan = fleet_plan(np, faults_mod, n_rounds, lossy=lossy)
+        for lanes in (None, "threads"):
+            sup = fleet(lanes=lanes, faults=faults_mod.FaultPlan(list(plan.faults), seed=SEED),
+                        clock=faults_mod.FaultClock(), dispatch_deadline_s=1.0)
+            (scores, _, _), _ = counted(f"plan lossy={lossy} lanes={lanes}", sup,
+                                        lambda: serve_events_timed(torch, sup, audio, chunks))
+            kinds = sorted(i["kind"] for i in sup.incidents)
+            check(kinds == ["crash", "crash", "kill", "stall"],
+                  f"fleet plan: incidents {kinds}")
+            clean = set(range(N_STREAMS)) - plan.affected_streams
+            same(f"plan lossy={lossy}", scores, sup.finalize(), sorted(clean))
+            rebuilds += sum(w.rebuilds for w in sup.workers)
+            sup.close()
+    # 3. a worker killed past max_rebuilds moves its streams, losslessly
+    plan = faults_mod.FaultPlan([faults_mod.Fault("kill_worker", 1, worker=0),
+                                 faults_mod.Fault("kill_worker", 2, worker=0)])
+    sup = fleet(faults=plan, clock=faults_mod.FaultClock(), max_rebuilds=1)
+    (scores, _, _), _ = counted("reassign", sup,
+                                lambda: serve_events_timed(torch, sup, audio, chunks))
+    check([i["kind"] for i in sup.incidents] == ["kill", "kill", "reassign"]
+          and not sup.workers[0].alive, f"fleet reassign: incidents {sup.incidents}")
+    same("reassign", scores, sup.finalize())
+    repacks = tconv.packed_weight.packs - packs0
+    print(f"fleet_recovery rebuilds={rebuilds + 2} K2 weight packs during the fleet runs="
+          f"{repacks} (revived workers found their packed weights cached: {repacks == 0})")
+    check(repacks == 0, f"fleet: revived workers packed K2's weights {repacks} times")
+
+    # revive time: a worker rebuilt from the artifact and its last good state
+    sup = fleet(max_rebuilds=10 ** 6)
+    serve_events_timed(torch, sup, audio, chunks[:2], upto=None)
+    revive_ms = []
+    for _ in range(5):
+        for w in sup.workers:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            sup._revive(w)
+            b.record()
+            torch.cuda.synchronize()
+            revive_ms.append(a.elapsed_time(b))
+
+    # 4. durable state: bytes written a round, and a cold restart mid-scene
+    class CountingFS(LocalFilesystem):
+        def __init__(self):
+            self.bytes = {"checkpoint": 0, "wal": 0}
+
+        def write(self, fh, data):
+            kind = "wal" if fh.name.endswith("wal.log") else "checkpoint"
+            self.bytes[kind] += len(data)
+            return super().write(fh, data)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fs = CountingFS()
+        sup = fleet(state_dir=str(Path(tmp) / "full"), fs=fs)
+        scores, _, _ = serve_events_timed(torch, sup, audio, chunks)
+        same("state_dir", scores, sup.finalize())
+        per_round = {k: v / sup.round for k, v in fs.bytes.items()}
+        d = str(Path(tmp) / "crash")
+        cut = n_rounds // 2
+        first = fleet(state_dir=d)
+        head, _, _ = serve_events_timed(torch, first, audio, chunks, upto=cut)
+        del first  # abandoned mid-round (its chunks delivered, no step): no close()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        restored = FleetSupervisor.restore_from_dir(artifact, cfg, state_dir=d, lanes="threads",
+                                                    **fleet_kw)
+        b.record()
+        torch.cuda.synchronize()
+        restore_ms = a.elapsed_time(b)
+        check(restored is not None and restored.round == cut and restored.replayed_chunks > 0,
+              f"fleet restore: round {None if restored is None else restored.round} != {cut} "
+              f"or no chunk replayed from the WAL")
+        tail, _, _ = serve_events_timed(torch, restored, audio, chunks, start=restored.round,
+                                        cursor=restored.pushed_chunks)
+        merged = {(w.stream, w.window_idx): dataclasses.astuple(w) for w in head + tail}
+        check(sorted(merged.values()) == want_scores,
+              "fleet cold restart: scores differ from the uninterrupted run")
+        check(restored.finalize() == want_events, "fleet cold restart: events differ")
+        replayed = restored.replayed_chunks
+        restored.close()
+
+        # 5. spawn and retire mid-scene
+        sup = FleetSupervisor(artifact, cfg, n_streams=N_STREAMS, n_workers=1, **fleet_kw)
+        third, scores = n_rounds // 3, []
+        for r, rnd in enumerate(chunks):
+            if r == third:
+                check(sup.spawn_worker() == 1, "fleet: spawn_worker found no donor")
+            if r == 2 * third:
+                check(sup.retire_worker(1), "fleet: retire_worker refused")
+            for s, lo, hi in rnd:
+                sup.push(s, audio[s, lo:hi])
+            scores += sup.step()
+        while got := sup.step():
+            scores += got
+        same("spawn/retire", scores, sup.finalize())
+        check([i["kind"] for i in sup.incidents] == ["spawn", "retire"],
+              f"fleet spawn/retire: incidents {sup.incidents}")
+
+        # 6. the driver's fleet flags on the card, run twice on one state dir
+        path = Path(tmp) / "detector_int8.npz"
+        save_artifact(path, artifact.to("cpu"))
+        argv = ["--artifact", str(path), "--feature", "mfcc20", "--streams", str(N_STREAMS),
+                "--duration", str(SECONDS), "--slots", str(SLOTS), "--seed", str(SEED),
+                "--device", dev.type]
+        state = str(Path(tmp) / "driver")
+
+        def drive(extra):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                run = monitor.main([*argv, *extra])
+            return run, log.getvalue()
+
+        plain, _ = drive([])
+        for attempt in ("first", "rerun"):
+            run, log = drive(["--workers", "2", "--lanes", "threads", "--state-dir", state])
+            check(isinstance(run.engine, FleetSupervisor), "driver: no fleet")
+            check(run.events == plain.events, f"driver fleet ({attempt}): events differ")
+            check(run.engine.windows_scored == plain.engine.windows_scored,
+                  f"driver fleet ({attempt}): windows scored differ")
+            if attempt == "first":
+                check(score_key(run.scores) == score_key(plain.scores),
+                      "driver fleet: scores differ from the plain run")
+            else:
+                check("resumed from state dir" in log, "driver rerun did not resume")
+        n_driver_events = sum(len(e) for e in plain.events)
+
+    # windows/s and round p50: three turns of every way of serving, in
+    # alternating order; "lanes_switch_0.5ms" runs the lane fleet with the
+    # interpreter's thread switch interval cut from 5 to 0.5 ms (lanes hand
+    # the interpreter lock back and forth at every block's harvest)
+    def serve_once(name):
+        if name == "monolith":
+            engine = MonitorEngine(artifact, cfg, n_streams=N_STREAMS, **kw)
+        else:
+            engine = fleet(lanes=None if name == "sequential" else "threads")
+        old = sys.getswitchinterval()
+        if name == "lanes_switch_0.5ms":
+            sys.setswitchinterval(0.0005)
+        try:
+            scores, rounds, ms = serve_events_timed(torch, engine, audio, chunks)
+        finally:
+            sys.setswitchinterval(old)
+        check(score_key(scores) == want_scores, f"fleet {name}: timed run's scores differ")
+        if name != "monolith":
+            engine.close()
+        return len(scores) / (ms / 1e3), st.median(rounds)
+
+    kinds = ("monolith", "sequential", "lanes", "lanes_switch_0.5ms")
+    turns = {k: [] for k in kinds}
+    for turn in range(3):
+        for name in (kinds if turn % 2 == 0 else kinds[::-1]):
+            turns[name].append(serve_once(name))
+    timing = {k: {"windows_per_s": st.median(v[0] for v in runs),
+                  "round_p50_ms": st.median(v[1] for v in runs),
+                  "windows_per_s_runs": [v[0] for v in runs]}
+              for k, runs in turns.items()}
+
+    seconds = time.perf_counter() - t_phase
+    print("fleet " + json.dumps({
+        "workers": FLEET_WORKERS, "streams": N_STREAMS, "slots": SLOTS, **timing,
+        "revive_ms_p50": st.median(revive_ms),
+        "revive_ms_max": max(revive_ms), "restore_from_dir_ms": restore_ms,
+        "replayed_chunks": replayed, "checkpoint_bytes_per_round": per_round["checkpoint"],
+        "wal_bytes_per_round": per_round["wal"], "k2_repacks": repacks,
+        "driver_events": n_driver_events, "timing": "CUDA events", "phase_seconds": seconds,
+        "gpu": gpu_line,
+    }))
+    return launches
 
 
 #: K1's and K2's layers at 8 slots: (kernel, shape) as _qmm_case / _conv_case take them
@@ -1406,8 +1756,10 @@ def main(argv: list[str] | None = None) -> int:
             k3b_err, kernels["cordic_activation"]["max_abs_err"])
         add(signoff_launches)
         frontend_phase(torch, np, dev, gpu_line)
-        add(engine_phase(torch, np, dev, gpu_line))
+        engine_launches, runs = engine_phase(torch, np, dev, gpu_line)
+        add(engine_launches)
         add(ondevice_phase(torch, np, dev, gpu_line))
+        add(fleet_phase(torch, np, dev, gpu_line, *runs["int8"]))
         sweep_phase(torch, dev, gpu_line)
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)

@@ -28,6 +28,9 @@ LN2_F32 = 0.6931471824645996
 #: float32(1 / float32(ln 2)) (0x3FB8AA3B)
 INV_LN2_F32 = 1.4426950216293335
 
+#: the smallest normal float32; ``exp`` flushes results below it to zero
+FLT_MIN = 1.1754943508222875e-38
+
 _EXP_LO, _EXP_HI = -87.8, 88.8
 _LOG2E = 1.4426950408889634
 _C1, _C2 = 0.693359375, -2.12194440e-4
@@ -84,7 +87,9 @@ def minimum(x: torch.Tensor, c) -> torch.Tensor:
 
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 ``exp`` with the reference's bits (range-reduced Cephes
-    polynomial, FMA-contracted)."""
+    polynomial, FMA-contracted).  A result below ``FLT_MIN`` is flushed to
+    zero: XLA's CPU code runs with subnormals flushed, so ``jnp.exp`` never
+    returns one (``jnp.exp(-87.7)`` is 0.0)."""
     x = x.to(torch.float32)
     x = torch.clamp(x, _EXP_LO, _EXP_HI)
     n = torch.floor(fma_f32(x, _f(_LOG2E, x), _f(0.5, x)))
@@ -97,14 +102,15 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     z = fma_f32(z, r * r, r)
     z = z + 1.0
     pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
-    return z * pow2
+    out = z * pow2
+    return torch.where(out < FLT_MIN, torch.zeros_like(out), out)
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 natural ``log`` with the reference's bits, for positive
     finite ``x`` (the only inputs the quantisers give it)."""
     x = x.to(torch.float32)
-    x = torch.maximum(x, torch.full_like(x, 1.1754943508222875e-38))
+    x = torch.maximum(x, torch.full_like(x, FLT_MIN))
     bits = x.view(torch.int32)
     e = ((bits >> 23) - 127).to(torch.float32) + 1.0
     m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
@@ -129,7 +135,8 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def exp2_f32(k: torch.Tensor) -> torch.Tensor:
-    """``jnp.exp2`` of float32 ``k``: ``exp(float32(ln 2) * k)``."""
+    """``jnp.exp2`` of float32 ``k``: ``exp(float32(ln 2) * k)``, so below
+    ``2**-126`` it flushes to zero like :func:`exp_f32`."""
     return exp_f32(_f(LN2_F32, k) * k.to(torch.float32))
 
 

@@ -13,7 +13,11 @@ Bitwise parity with the reference rests on three details:
 * ``torch.round`` rounds half to even, as ``jnp.round`` does;
 * the FXP8 exponent and scale use the reference's own ``log2``/``exp2``
   bits (:mod:`repro_torch.core.f32_math`), which are not exact at powers
-  of two.
+  of two;
+* ``amax / 127`` is a division where the reference runs the quantiser
+  eagerly (the weight bake), but inside its jitted forward (the
+  activations) XLA evaluates it as ``amax * float32(1/127)``, which is one
+  ulp off in about one scale of twenty: ``jitted=True`` gives those bits.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import dataclasses
 import enum
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.f32_math import exp2_f32, log2_f32
@@ -73,24 +78,38 @@ def _amax(w: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
     return w.abs().amax(dim=red, keepdim=True)
 
 
+#: float32(1 / 127): XLA's factor for a division by the constant 127
+INV_127_F32 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _over_127(amax: torch.Tensor, jitted: bool) -> torch.Tensor:
+    if jitted:
+        return amax * _const(INV_127_F32, amax)
+    return torch.div(amax, _const(127.0, amax))
+
+
 def _to_int8(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(torch.div(w, scale)), -128, 127).to(torch.int8)
 
 
-def int8_symmetric(w: torch.Tensor, axis: Optional[int] = None) -> QTensor:
-    """Symmetric int8 quantisation with fp32 per-channel scale (INT8 mode)."""
+def int8_symmetric(w: torch.Tensor, axis: Optional[int] = None, *,
+                   jitted: bool = False) -> QTensor:
+    """Symmetric int8 quantisation with fp32 per-channel scale (INT8 mode);
+    ``jitted`` gives the bits of the reference's jitted forward."""
     w = w.to(torch.float32)
     amax = torch.clamp_min(_amax(w, axis), 1e-12)
-    scale = torch.div(amax, _const(127.0, amax))
+    scale = _over_127(amax, jitted)
     return QTensor(q=_to_int8(w, scale), scale=scale, axis=axis)
 
 
-def fxp8_quantize(w: torch.Tensor, axis: Optional[int] = None) -> QTensor:
+def fxp8_quantize(w: torch.Tensor, axis: Optional[int] = None, *,
+                  jitted: bool = False) -> QTensor:
     """FXP8: the scale is the smallest ``2^e`` with ``127 * 2^e >= amax``, as
-    the reference computes it (``ceil(log2(amax / 127))``, then ``exp2``)."""
+    the reference computes it (``ceil(log2(amax / 127))``, then ``exp2``);
+    ``jitted`` gives the bits of the reference's jitted forward."""
     w = w.to(torch.float32)
     amax = torch.clamp_min(_amax(w, axis), 1e-12)
-    e = torch.ceil(log2_f32(torch.div(amax, _const(127.0, amax))))
+    e = torch.ceil(log2_f32(_over_127(amax, jitted)))
     scale = exp2_f32(e)
     return QTensor(q=_to_int8(w, scale), scale=scale, axis=axis)
 

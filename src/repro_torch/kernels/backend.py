@@ -189,6 +189,18 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch counter a kernel's
+    wrapper bumps where it launches its kernel.  Under a lock: the fleet's
+    execution lanes launch kernels from several threads at once, and an
+    unlocked ``+= 1`` could lose a count."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -19,6 +19,7 @@ and the weight packed K-major once per weight tensor by
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 
 import torch
@@ -76,23 +77,36 @@ def conv_tiling(b: int, l: int, cin: int, cout: int, k: int) -> ConvTiling:
 
 
 _packed: dict[int, tuple] = {}
+_packed_lock = threading.Lock()
 
 
 def packed_weight(w_q: torch.Tensor) -> torch.Tensor:
     """``w_q`` (K, Cin, Cout) as (K, Cout, Cin), Cin contiguous: the layout
     the tensor cores take.  Packed once per weight tensor and kept while the
     tensor lives and is not written to (its version counter), so serving
-    calls reuse it and launch nothing extra.  An inference tensor has no
-    version counter and is packed anew on every call."""
+    calls reuse it and launch nothing extra; every worker of a fleet serves
+    one artifact, so a rebuilt worker finds its weights packed.  An
+    inference tensor has no version counter and is packed anew on every
+    call.  ``packed_weight.packs`` counts the packs made (the misses); the
+    cache is locked, as fleet lanes call it from several threads."""
     if w_q.is_inference():
+        with _packed_lock:
+            packed_weight.packs += 1
         return w_q.permute(0, 2, 1).contiguous()
     key = id(w_q)
-    hit = _packed.get(key)
-    if hit is not None and hit[0]() is w_q and hit[1] == w_q._version:
-        return hit[2]
-    wp = w_q.permute(0, 2, 1).contiguous()
-    _packed[key] = (weakref.ref(w_q, lambda _, k=key: _packed.pop(k, None)), w_q._version, wp)
+    with _packed_lock:
+        hit = _packed.get(key)
+        if hit is not None and hit[0]() is w_q and hit[1] == w_q._version:
+            return hit[2]
+        wp = w_q.permute(0, 2, 1).contiguous()
+        _packed[key] = (weakref.ref(w_q, lambda _, k=key: _packed.pop(k, None)), w_q._version,
+                        wp)
+        packed_weight.packs += 1
     return wp
+
+
+#: weight packs made since the counter was last set to 0
+packed_weight.packs = 0
 
 
 def conv_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -200,7 +214,7 @@ def conv1d_fused_q(
                 b, l, cin, cout, k, tile.bm, tile.bn, tile.stages, backend.stream_ptr(x_q),
             )
         backend.check(err, "conv1d_fused_i8")
-        conv1d_fused_q.launches += 1
+        backend.count_launch(conv1d_fused_q)
     return acc if return_acc else out
 
 

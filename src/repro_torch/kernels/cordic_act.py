@@ -176,7 +176,7 @@ def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
                 backend.stream_ptr(x),
             )
         backend.check(err, "cordic_activation_f32")
-        cordic_activation.launches += 1
+        backend.count_launch(cordic_activation)
     return out.reshape(x.shape)
 
 
@@ -228,7 +228,7 @@ def _cordic_softmax_cuda(x: torch.Tensor) -> torch.Tensor:
                 x.data_ptr(), out.data_ptr(), rows, cols, backend.stream_ptr(x)
             )
         backend.check(err, "cordic_softmax_f32")
-        cordic_softmax.launches += 1
+        backend.count_launch(cordic_softmax)
     return out
 
 

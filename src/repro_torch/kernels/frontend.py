@@ -72,7 +72,7 @@ def project_rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
                 x.data_ptr(), m.data_ptr(), out.data_ptr(), r, k, n, backend.stream_ptr(x)
             )
         backend.check(err, "project_rows_f32")
-        project_rows.launches += 1
+        backend.count_launch(project_rows)
     return out
 
 
@@ -108,7 +108,7 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(x.device):
             err = lib.row_sum_f32(x.data_ptr(), out.data_ptr(), r, n, backend.stream_ptr(x))
         backend.check(err, "row_sum_f32")
-        row_sum.launches += 1
+        backend.count_launch(row_sum)
     return out
 
 

@@ -18,6 +18,7 @@ plain version's bit for bit whatever order the blocks finish in.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -99,17 +100,21 @@ def qmm_tiling(m: int, k: int, n: int) -> QmmTiling:
 #: (device, stream) -> (int32 workspace, int32 tile counters), both zero
 #: between calls: each split call leaves them as it found them
 _scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+#: fleet lanes call K1 from several threads: the workspace table is locked
+#: (the launches themselves are ordered by their stream)
+_scratch_lock = threading.Lock()
 
 
 def _split_scratch(device: torch.device, stream: int, ints: int, tiles: int):
     key = (device, stream)
-    ws, counters = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < ints or counters.numel() < tiles:
-        size = max(ints, 0 if ws is None else ws.numel())
-        count = max(tiles, 0 if counters is None else counters.numel())
-        ws = torch.zeros(size, dtype=torch.int32, device=device)
-        counters = torch.zeros(count, dtype=torch.int32, device=device)
-        _scratch[key] = (ws, counters)
+    with _scratch_lock:
+        ws, counters = _scratch.get(key, (None, None))
+        if ws is None or ws.numel() < ints or counters.numel() < tiles:
+            size = max(ints, 0 if ws is None else ws.numel())
+            count = max(tiles, 0 if counters is None else counters.numel())
+            ws = torch.zeros(size, dtype=torch.int32, device=device)
+            counters = torch.zeros(count, dtype=torch.int32, device=device)
+            _scratch[key] = (ws, counters)
     return ws, counters
 
 
@@ -204,7 +209,7 @@ def quant_matmul(
             # a launch that failed may have left partial sums behind
             _scratch.pop((x_q.device, stream), None)
         backend.check(err, "quant_matmul_i8")
-        quant_matmul.launches += 1
+        backend.count_launch(quant_matmul)
     return acc if return_acc else out
 
 

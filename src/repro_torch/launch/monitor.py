@@ -24,11 +24,18 @@ Two things differ from the reference driver:
 * **``--device {cuda,cpu}``**, CUDA by default: PyTorch needs the device
   named, where JAX picks it itself.  Without a GPU, ``cuda`` fails.
 
-The fleet flags (``--workers``, ``--faults``, ``--lanes``, ``--autoscale``,
-``--state-dir``, ``--fsync``, ``--checkpoint-interval``) and ``--shards``
-are accepted and exit naming ROADMAP M7 and M8.  :func:`main` returns a
-:class:`MonitorRun` (engine, scores, events, scenes, timings) instead of
-the events alone.
+The fleet flags serve through the port's
+:class:`~repro_torch.serving.supervisor.FleetSupervisor` as the
+reference's do: ``--workers N``; ``--faults PLAN.json`` (written by
+``python -m repro_torch.serving.faults`` or the reference's CLI, the same
+plan), ``--lanes threads``, ``--autoscale`` and ``--state-dir DIR`` each
+imply ``--workers 2``; ``--fsync`` and ``--checkpoint-interval`` tune
+``--state-dir``.  A rerun with the same ``--state-dir`` and seed resumes
+from :meth:`~repro_torch.serving.supervisor.FleetSupervisor.restore_from_dir`
+and re-delivers only what the restored fleet does not hold.  ``--shards``
+exits naming ROADMAP M8.  :func:`main` returns a :class:`MonitorRun`
+(engine or fleet, scores, events, scenes, timings) instead of the events
+alone.
 """
 from __future__ import annotations
 
@@ -43,18 +50,12 @@ import torch
 from repro_torch.data import acoustic, features
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import cnn1d
-from repro_torch.serving.engine import MonitorEngine, WindowScore
-from repro_torch.serving.quantized_params import QuantizedParams, load_artifact
+from repro_torch.serving.engine import MonitorEngine, SanitizePolicy, WindowScore
+from repro_torch.serving.quantized_params import QuantizedParams, load_artifact, quantize_params
+from repro_torch.serving.supervisor import FleetSupervisor
 from repro_torch.serving.tracker import TrackEvent
 
 SMALL_CFG = dict(channels=(4, 8), hidden=8)
-
-#: fleet-supervisor flags: (flag, dest) -> ROADMAP M7
-FLEET_FLAGS = (
-    ("--workers", "workers"), ("--faults", "faults"), ("--lanes", "lanes"),
-    ("--autoscale", "autoscale"), ("--state-dir", "state_dir"),
-    ("--fsync", "fsync"), ("--checkpoint-interval", "checkpoint_interval"),
-)
 
 
 def synth_scene(seconds: float, rng: np.random.Generator):
@@ -118,7 +119,7 @@ def config_for_artifact(qp: QuantizedParams, feature_kind: str) -> cnn1d.CNNConf
 class MonitorRun:
     """What one driver run served."""
 
-    engine: MonitorEngine
+    engine: MonitorEngine | FleetSupervisor
     scores: list[WindowScore]
     events: list[list[TrackEvent]]
     scenes: list[np.ndarray]
@@ -162,19 +163,33 @@ def _parser() -> argparse.ArgumentParser:
                          "first served); chunks for later streams are "
                          "refused and counted, never scored")
     ap.add_argument("--workers", type=int, default=None, metavar="N",
-                    help="fault-tolerant fleet supervisor (ROADMAP M7)")
+                    help="serve through the fault-tolerant fleet supervisor "
+                         "with N health-checked workers instead of one "
+                         "monolithic engine (bitwise-identical results)")
     ap.add_argument("--faults", default=None, metavar="PLAN.json",
-                    help="fault-plan injection through the fleet (ROADMAP M7)")
+                    help="inject a deterministic fault plan (written by "
+                         "python -m repro_torch.serving.faults) through the "
+                         "fleet supervisor; implies --workers 2 unless given")
     ap.add_argument("--lanes", choices=("threads",), default=None,
-                    help="concurrent fleet execution lanes (ROADMAP M7)")
+                    help="give each fleet worker a named execution lane "
+                         "(thread) so workers' rounds overlap (bitwise-"
+                         "identical results); implies --workers 2 unless given")
     ap.add_argument("--autoscale", action="store_true",
-                    help="SLO autoscaler over the fleet (ROADMAP M7)")
+                    help="close the SLO loop: a FleetController watches "
+                         "round latency and defer/drop rates and resizes "
+                         "the fleet against a default target; implies "
+                         "--workers 2 unless given")
     ap.add_argument("--state-dir", default=None, metavar="DIR",
-                    help="durable fleet state (ROADMAP M7)")
-    ap.add_argument("--fsync", choices=("always", "interval", "never"), default=None,
-                    help="WAL fsync policy with --state-dir (ROADMAP M7)")
-    ap.add_argument("--checkpoint-interval", type=int, default=None, metavar="R",
-                    help="checkpoint interval with --state-dir (ROADMAP M7)")
+                    help="durable crash-safe fleet state: per-worker "
+                         "checkpoints + write-ahead chunk journals under "
+                         "DIR; rerun with the same DIR (and seed) after a "
+                         "SIGKILL to resume bitwise where the fleet left "
+                         "off; implies --workers 2 unless given")
+    ap.add_argument("--fsync", choices=("always", "interval", "never"),
+                    default="interval", help="WAL fsync policy with --state-dir")
+    ap.add_argument("--checkpoint-interval", type=int, default=1, metavar="R",
+                    help="checkpoint every R rounds with --state-dir (R>1 "
+                         "lowers overhead; 1 is the exact-restart setting)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--random", action="store_true",
                     help="seeded random-init weights (plumbing smoke, no real detections)")
@@ -186,7 +201,7 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine:
+def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine | FleetSupervisor:
     try:
         dev = resolve_device(args.device)
     except RuntimeError as exc:
@@ -234,6 +249,8 @@ def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine:
 
         admission = AdmissionPolicy(max_streams=args.max_streams)
         print(f"monitor: admission cap {args.max_streams} stream(s)")
+    if _fleet_requested(args):
+        return _build_fleet(args, params, cfg, dev, prune_spec, policy, admission)
     try:
         return MonitorEngine(
             params, cfg,
@@ -252,15 +269,74 @@ def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine:
         raise SystemExit(f"monitor: {exc}") from exc
 
 
+def _fleet_requested(args) -> bool:
+    return (args.workers is not None or args.faults is not None or args.lanes is not None
+            or args.autoscale or args.state_dir is not None)
+
+
+def _build_fleet(args, params, cfg, dev, prune_spec, policy, admission) -> FleetSupervisor:
+    """The fleet the fleet flags ask for: resumed from ``--state-dir`` when
+    it holds a fleet, else a new one over ``--workers`` (2 by default)."""
+    from repro_torch.serving.faults import FaultClock, FaultPlan
+
+    plan = None
+    if args.faults is not None:
+        with open(args.faults) as fh:
+            plan = FaultPlan.from_json(fh.read())
+        print(f"monitor: fault plan {args.faults} "
+              f"({len(plan.faults)} fault(s), seed {plan.seed})")
+    # The supervisor serves an immutable baked artifact (that is what makes
+    # rebuilding a dead worker exact): bake the deploy-time decisions here.
+    if not isinstance(params, QuantizedParams):
+        params = quantize_params(
+            params, cfg, mode=args.precision, prune=prune_spec, policy=policy,
+            feature_kind=args.feature if args.device_features else None, device=dev,
+        )
+    sup_kw = dict(
+        lanes=args.lanes,
+        faults=plan,
+        clock=FaultClock() if plan is not None else None,
+        fsync=args.fsync,
+        checkpoint_interval=args.checkpoint_interval,
+        sanitize=SanitizePolicy(),
+        feature_kind=args.feature,
+        on_device_features=args.device_features,
+        batch_slots=args.slots,
+        adaptive_slots=args.adaptive_slots,
+        admission=admission,
+        device=dev,
+    )
+    try:
+        fleet = None
+        if args.state_dir is not None:
+            fleet = FleetSupervisor.restore_from_dir(params, cfg, state_dir=args.state_dir,
+                                                     **sup_kw)
+        if fleet is not None:
+            if fleet.n_streams != args.streams:
+                raise SystemExit(
+                    f"monitor: --streams {args.streams} does not match the state dir "
+                    f"({fleet.n_streams} stream(s)); rerun with the original arguments "
+                    f"or a fresh --state-dir"
+                )
+            print(f"monitor: resumed from state dir at round {fleet.round}, "
+                  f"replayed {fleet.replayed_chunks} chunk(s)")
+        else:
+            fleet = FleetSupervisor(
+                params, cfg, n_streams=args.streams,
+                n_workers=args.workers if args.workers is not None else 2,
+                state_dir=args.state_dir, **sup_kw,
+            )
+    except ValueError as exc:
+        raise SystemExit(f"monitor: {exc}") from exc
+    lane_note = "" if args.lanes is None else f", {args.lanes} execution lanes"
+    print(f"monitor: fleet supervisor, {fleet.n_live_workers} worker(s) "
+          f"over {args.streams} stream(s){lane_note}")
+    return fleet
+
+
 def main(argv=None) -> MonitorRun:
     ap = _parser()
     args = ap.parse_args(argv)
-    fleet = [flag for flag, dest in FLEET_FLAGS if getattr(args, dest) not in (None, False)]
-    if fleet:
-        raise SystemExit(
-            f"monitor: {', '.join(fleet)} drive the fleet supervisor, which the "
-            f"port does not have yet (ROADMAP M7)"
-        )
     if args.shards is not None:
         raise SystemExit("monitor: --shards (sharded dispatch over several GPUs) is ROADMAP M8")
     if args.trained or (args.artifact is None and not args.random):
@@ -271,6 +347,19 @@ def main(argv=None) -> MonitorRun:
         )
 
     engine = _build_engine(args, ap)
+    fleet = isinstance(engine, FleetSupervisor)
+    controller = None
+    if args.autoscale:
+        from repro_torch.serving.controller import FleetController, SLOTarget
+
+        controller = FleetController(
+            engine,
+            SLOTarget(max_defer_rate=0.25, max_drop_rate=0.05, min_workers=1,
+                      max_workers=max(2, args.streams // 2)),
+            window=8, cooldown_rounds=4,
+        )
+        print("monitor: SLO autoscaler on (defer<=25%, drop<=5%, "
+              f"workers 1..{controller.slo.max_workers})")
     if args.adaptive_slots:
         ladder = engine.precompile()
         print(f"monitor: adaptive slots, warmed ladder {list(ladder)}")
@@ -301,11 +390,25 @@ def main(argv=None) -> MonitorRun:
         show(got)
         return got
 
+    # A fleet resumed from --state-dir already holds each stream's chunks
+    # below its ``pushed_chunks`` cursor and the windows of the rounds below
+    # its round counter: skip exactly those (a new engine or fleet: none).
+    done = np.asarray(getattr(engine, "pushed_chunks", np.zeros(args.streams, np.int64))).copy()
+    skip_rounds = int(getattr(engine, "round", 0))
+    ordinals = [0] * args.streams
+
     t0 = time.perf_counter()
-    for round_pushes in schedule:
+    for r, round_pushes in enumerate(schedule):
         for s, lo, hi in round_pushes:
-            engine.push(s, scenes[s][lo:hi])
+            if ordinals[s] >= done[s]:
+                engine.push(s, scenes[s][lo:hi])
+            ordinals[s] += 1
+        if r < skip_rounds:
+            continue  # this round's windows were scored before the restart
+        t_round = time.perf_counter()
         step()
+        if controller is not None:
+            controller.step((time.perf_counter() - t_round) * 1e3)
     while step():  # backlogged windows: delivery outpaces 1/round
         pass
     dt = time.perf_counter() - t0
@@ -327,6 +430,24 @@ def main(argv=None) -> MonitorRun:
         n_refused = int(np.count_nonzero(refused))
         print(f"monitor: {n_refused} stream(s) refused at admission, "
               f"{int(refused.sum())} chunk(s) dropped")
+    if fleet:
+        for h in engine.health():
+            age = "never" if h["heartbeat_age_s"] is None else f"{h['heartbeat_age_s']:.3f}s ago"
+            state = "alive" if h["alive"] else "RETIRED"
+            print(f"  worker {h['worker']}: {state}, streams {h['streams']}, "
+                  f"{h['rebuilds']} rebuild(s), last heartbeat {age}")
+        if engine.incidents:
+            print(f"monitor: survived {len(engine.incidents)} incident(s):")
+            for i in engine.incidents:
+                print(f"    round {i['round']:3d} worker {i['worker']} [{i['kind']}] {i['detail']}")
+        if controller is not None:
+            print(f"monitor: autoscaler took {len(controller.actions)} action(s), fleet "
+                  f"ended at {engine.n_live_workers} live worker(s)")
+            for a in controller.actions:
+                m = a["metrics"]
+                print(f"    round {a['round']:3d} [{a['kind']}] defer={m['defer_rate']:.2f} "
+                      f"drop={m['drop_rate']:.2f} live={m['n_live']}")
+        engine.close()
     for s, (evs, (t_on, t_off)) in enumerate(zip(events, truths)):
         print(f"stream {s}: ground truth UAV at {t_on:.1f}-{t_off:.1f}s, {len(evs)} event(s)")
         for e in evs:

@@ -27,6 +27,7 @@ CUDA request raises.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +45,10 @@ from repro_torch.serving.quantized_params import QuantizedParams, quantize_param
 
 
 def _quantizer(layer_mode: str):
-    return fxp8_quantize if layer_mode == "fxp8" else int8_symmetric
+    """The activation quantiser of a layer, with the bits it has in the
+    reference's jitted forward (``amax * float32(1/127)``)."""
+    quant = fxp8_quantize if layer_mode == "fxp8" else int8_symmetric
+    return functools.partial(quant, jitted=True)
 
 
 @contextlib.contextmanager

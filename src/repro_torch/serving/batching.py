@@ -1,7 +1,7 @@
 """Shared continuous-batching/dispatch core for every serving surface.
 
-The port's own copy of ``SlotPolicy``, ``BlockPool``, ``DispatchCore``,
-``AdmissionPolicy`` and ``fair_allocation`` from
+The port's own copy of ``SlotPolicy``, ``BlockPool``, ``IngestQueue``,
+``DispatchCore``, ``AdmissionPolicy`` and ``fair_allocation`` from
 ``repro/serving/batching.py``.  On the card, ``MonitorEngine`` copies each
 packed block to the device before the forward returns, and on the CPU
 ``torch.from_numpy`` aliases the block; the ``inflight + 1`` rotation below
@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -185,6 +186,38 @@ class BlockPool:
         if n < slots:
             block[n:] = 0.0  # dead slots carry silence
         return block
+
+
+class IngestQueue:
+    """Thread-safe front-of-fleet ingest queue for lane-parallel serving.
+
+    With execution lanes enabled, the fleet supervisor's ``push`` must never
+    touch a worker engine directly — a lane may be mid-round on that engine.
+    Producers ``append`` (never blocks, only a lock-protected deque append);
+    the supervisor ``drain``s the whole backlog at the top of each round, on
+    its own thread, and routes the items through the exact same admission /
+    fault-injection / journal path the sequential fleet uses — so queued
+    ingest changes *when* a chunk is delivered, never *what* is delivered,
+    and the lane-parallel fleet stays bitwise equal to the sequential one.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._items: collections.deque = collections.deque()
+
+    def append(self, item) -> None:
+        with self._lock:
+            self._items.append(item)
+
+    def drain(self) -> list:
+        """Swap out and return the queued items, oldest first."""
+        with self._lock:
+            items, self._items = self._items, collections.deque()
+        return list(items)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._items)
 
 
 class DispatchCore:

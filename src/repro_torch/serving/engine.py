@@ -26,9 +26,11 @@ baked front-end runs ahead of the first layer, so no host feature work
 sits in a round.  Its features agree with the host front-end within
 ``features_torch.PARITY_ATOL``; streaming == batched stays bitwise.
 
-Left for later slices, each raising ``NotImplementedError``: sharded
-dispatch (``shards``/``mesh``, ROADMAP M8) and the byte codec of snapshots
-(``snapshot_bytes``, M7).
+``snapshot()`` holds numpy only, with the reference's keys, dtypes and
+Python scalar types, so ``snapshot_bytes()`` gives the reference engine's
+bytes for the same state (:mod:`repro_torch.serving.durability`).  Left
+for a later slice, raising ``NotImplementedError``: sharded dispatch
+(``shards``/``mesh``, ROADMAP M8).
 """
 from __future__ import annotations
 
@@ -602,7 +604,15 @@ class MonitorEngine:
         self._ready_counts = np.array([r.ready for r in self._rings], np.int64)
 
     def snapshot_bytes(self) -> bytes:
-        raise NotImplementedError("the byte codec of snapshots (durability) is ROADMAP M7")
+        """:meth:`snapshot` serialised through the exact on-disk codec
+        (:func:`repro_torch.serving.durability.dumps_state`): dtypes, shapes
+        and scalar counters survive the byte round-trip bit-for-bit."""
+        from repro_torch.serving.durability import dumps_state
+
+        return dumps_state(self.snapshot())
 
     def restore_bytes(self, data: bytes) -> None:
-        raise NotImplementedError("the byte codec of snapshots (durability) is ROADMAP M7")
+        """Inverse of :meth:`snapshot_bytes`."""
+        from repro_torch.serving.durability import loads_state
+
+        self.restore(loads_state(data))

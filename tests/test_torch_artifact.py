@@ -64,6 +64,39 @@ def test_exp_log_bits_match_reference():
     assert _bits_equal(jax.jit(jnp.exp2)(k), f32_math.exp2_f32(torch.from_numpy(k)).numpy())
 
 
+@pytest.mark.parametrize("fn", ["exp", "exp2"])
+def test_exp_flushes_subnormal_results_like_reference(fn):
+    """XLA on the CPU flushes subnormal results to zero: ``jnp.exp`` below
+    about -87.3 and ``jnp.exp2`` below -126 give 0.0, never a subnormal."""
+    jf, tf = {"exp": (jnp.exp, f32_math.exp_f32), "exp2": (jnp.exp2, f32_math.exp2_f32)}[fn]
+    x = np.linspace(-104, -80, 240001, dtype=np.float32)
+    if fn == "exp2":
+        x = np.concatenate([x, np.linspace(-150, -120, 60001, dtype=np.float32)])
+    want = np.asarray(jax.jit(jf)(x))
+    got = tf(torch.from_numpy(x)).numpy()
+    assert _bits_equal(want, got)
+    assert (got == 0).any() and not ((got != 0) & (np.abs(got) < np.finfo(np.float32).tiny)).any()
+
+
+@pytest.mark.parametrize("quant", ["int8_symmetric", "fxp8_quantize"])
+def test_jitted_quantizers_have_the_jitted_forward_bits(quant):
+    """Inside ``jax.jit`` (the reference's forward, where the activations
+    are quantised) XLA turns ``amax / 127`` into ``amax * float32(1/127)``;
+    eagerly (the bake) it divides.  ``jitted=True`` matches the first, the
+    default the second, on rows where the two differ."""
+    rng = np.random.default_rng(5)
+    w = (rng.standard_normal((4000, 64)) * 10.0 ** rng.uniform(-4, 4, (4000, 1))).astype(np.float32)
+    jf, tf = getattr(jq, quant), getattr(tq, quant)
+    jit_q = jax.jit(lambda v: jf(v, axis=0))(jnp.asarray(w))
+    eager_q = jf(jnp.asarray(w), axis=0)
+    got = tf(torch.from_numpy(w), axis=0, jitted=True)
+    assert _bits_equal(jit_q.scale, got.scale.numpy()) and _bits_equal(jit_q.q, got.q.numpy())
+    plain = tf(torch.from_numpy(w), axis=0)
+    assert _bits_equal(eager_q.scale, plain.scale.numpy())
+    if quant == "int8_symmetric":  # the case the flag exists for
+        assert not _bits_equal(jit_q.scale, eager_q.scale)
+
+
 def test_fma_is_correctly_rounded():
     rng = np.random.default_rng(1)
     a, b, c = (rng.standard_normal(50000).astype(np.float32) * 10.0 ** rng.uniform(-5, 5, 50000).astype(np.float32)

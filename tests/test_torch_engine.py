@@ -258,5 +258,11 @@ def test_ring_sanitize_and_validation(detector):
         MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="mfcc20", device="cpu")
     with pytest.raises(NotImplementedError, match="M8"):
         MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="zcr", device="cpu", shards=2)
-    with pytest.raises(NotImplementedError, match="M7"):
-        eng.snapshot_bytes()
+    # the snapshot's byte codec round-trips the engine's state exactly
+    eng.push(1, np.ones(3 * features.N_SAMPLES // 2, np.float32))
+    blob = eng.snapshot_bytes()
+    back = MonitorEngine(tparams, tcfg, n_streams=2, feature_kind="zcr", device="cpu",
+                         sanitize=SanitizePolicy())
+    back.restore_bytes(blob)
+    assert back.snapshot_bytes() == blob
+    assert back.rejected_chunks[0] == 1 and back.ready_windows().tolist() == [0, 1]

@@ -4,8 +4,10 @@ reference's.
 ``synth_scene`` draws the reference's scenes bit for bit; ``main`` serves
 seeded random weights, and a baked artifact with the front-end on the
 device, where its scores and events equal the reference ``MonitorEngine``
-fed the same delivery schedule; the flags of unported layers exit naming
-their ROADMAP item.
+fed the same delivery schedule; every fleet flag serves through the
+port's ``FleetSupervisor`` with the events of the plain run (a rerun on the
+same ``--state-dir`` resumes, and ends with the same events); the flags of
+unported layers exit naming their ROADMAP item.
 """
 import dataclasses
 from pathlib import Path
@@ -22,6 +24,8 @@ from repro.serving.engine import MonitorEngine as JEngine  # noqa: E402
 from repro.serving.quantized_params import load_artifact as j_load  # noqa: E402
 from repro_torch.data import features  # noqa: E402
 from repro_torch.launch import monitor  # noqa: E402
+from repro_torch.serving.faults import Fault, FaultPlan  # noqa: E402
+from repro_torch.serving.supervisor import FleetSupervisor  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -77,11 +81,7 @@ def test_main_on_device_artifact_matches_reference_engine(capsys):
 
 
 @pytest.mark.parametrize("extra,road", [
-    (["--workers", "2"], "M7"), (["--faults", "plan.json"], "M7"),
-    (["--lanes", "threads"], "M7"), (["--autoscale"], "M7"),
-    (["--state-dir", "state"], "M7"), (["--fsync", "always"], "M7"),
-    (["--checkpoint-interval", "2"], "M7"), (["--shards", "2"], "M8"),
-    ([], "M9"), (["--trained"], "M9"),
+    (["--shards", "2"], "M8"), ([], "M9"), (["--trained"], "M9"),
 ])
 def test_unported_layers_exit_naming_their_roadmap_item(extra, road):
     argv = extra if road == "M9" else ["--random", *extra]
@@ -98,3 +98,47 @@ def test_artifact_flag_errors(capsys):
     with pytest.raises(SystemExit, match="baked for feature kind"):
         monitor.main(["--artifact", str(GOLDEN / "detector_int8.npz"), "--feature", "zcr",
                       "--device-features", "--device", "cpu"])
+
+
+#: a lossless plan for the driver's 3 x 2 s scene: crash, stall, kill, jitter
+LOSSLESS_PLAN = FaultPlan([
+    Fault("raise_forward", round=0, worker=0), Fault("stall_forward", round=1, worker=1),
+    Fault("kill_worker", round=1, worker=0),
+    Fault("jitter_chunk", round=0, stream=2, magnitude=0.5),
+], seed=None)
+PLAIN = ["--random", "--device", "cpu", "--seconds", "2", "--streams", "3", "--seed", "3"]
+
+
+@pytest.fixture(scope="module")
+def plain_run():
+    run = monitor.main(PLAIN)
+    return [dataclasses.astuple(w) for w in run.scores], run.events
+
+
+@pytest.mark.parametrize("extra", [
+    ["--workers", "2"], ["--workers", "3", "--lanes", "threads"], ["--faults", "PLAN"],
+    ["--lanes", "threads"], ["--autoscale"], ["--state-dir", "STATE"],
+    ["--state-dir", "STATE", "--fsync", "always"],
+    ["--state-dir", "STATE", "--checkpoint-interval", "2", "--lanes", "threads"],
+])
+def test_fleet_flags_serve_with_the_plain_runs_events(plain_run, tmp_path, capsys, extra):
+    plan = tmp_path / "plan.json"
+    plan.write_text(LOSSLESS_PLAN.to_json())
+    argv = [*PLAIN, *(str(plan) if a == "PLAN" else str(tmp_path / "state") if a == "STATE"
+                      else a for a in extra)]
+    run = monitor.main(argv)
+    out = capsys.readouterr().out
+    assert isinstance(run.engine, FleetSupervisor)
+    want_workers = int(extra[1]) if extra[0] == "--workers" else 2
+    assert f"fleet supervisor, {want_workers} worker(s)" in out
+    scores, events = plain_run
+    assert sorted(dataclasses.astuple(w) for w in run.scores) == sorted(scores)
+    assert run.events == events
+    if "--faults" in extra:
+        assert "survived 3 incident(s)" in out  # the jitter is no incident
+    if "--autoscale" in extra:
+        assert "SLO autoscaler on" in out and "autoscaler took" in out
+    if "--state-dir" in extra:  # a rerun resumes from the state dir, same events
+        again = monitor.main(argv)
+        assert "resumed from state dir" in capsys.readouterr().out
+        assert again.events == events

@@ -79,6 +79,7 @@ def test_entry_points_raise_without_gpu_by_default(no_card, tmp_path):
         quantize_params,
         save_artifact,
     )
+    from repro_torch.serving.supervisor import FleetSupervisor
 
     cfg = cnn1d.CNNConfig(input_len=128, channels=(4, 8), hidden=8)
     params = cnn1d.init_params(cfg, torch.Generator().manual_seed(0))
@@ -97,5 +98,15 @@ def test_entry_points_raise_without_gpu_by_default(no_card, tmp_path):
         load_artifact(tmp_path / "a.npz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         accelerator_forward(qp, x, cfg)
+    # the fleet, new or restored from a state dir, raises the same way
+    for call in (
+        lambda: FleetSupervisor(qp, cfg, n_streams=2, feature_kind="zcr"),
+        lambda: FleetSupervisor.restore_from_dir(qp, cfg, state_dir=str(tmp_path / "none"),
+                                                 feature_kind="zcr"),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert FleetSupervisor.restore_from_dir(
+        qp, cfg, state_dir=str(tmp_path / "none"), feature_kind="zcr", device="cpu") is None
     # asked for the CPU, the same artifact serves
     assert accelerator_forward(qp, x, cfg, device="cpu").shape == (2, 2)
