@@ -26,11 +26,19 @@ failure (no phase catches its own failure and carries on):
    call: K1 (M in 1, 8, 9, 64, 8,768; split and unsplit K; ragged K and N)
    and K2 (Cin 1-200 around the MMA depth, L 1-1,096, K 1/3/5), on
    outputs and accumulators, each serving layer one device operation and
-   timed beside its bound; K3 at 1-100 columns (both sides of its register path);
+   timed beside its bound; K3 at 1-100 columns (both sides of its register
+   path) and on wide rows (1,025, 2,048, 4,096 and the widest it takes,
+   32,768 columns, a block a row);
    K3b in all seven modes at the reference sweep's 4096 x 128, on every
    Q15.16 angle the mode can feed the CORDIC, at ragged sizes, on views
    at 1- and 3-float offsets and at the unit's edge values; the
-   front-end's fixed-order projection and row sum;
+   front-end's fixed-order projection and row sum; and the projection at
+   the float layers' shapes (8 x 35,072 x 64, 8 x 8,704 x 64, 8 x 64 x 2
+   and conv0's im2col rows 8,768 x 3 x 64), each timed beside its bound;
+   then the float layers at full width (policies ``dense0/w=fp32`` and
+   ``dense0/w=bf16``): a row's logits and probabilities bitwise the same
+   at batch sizes 1, 3 and 8, under a permutation and beside silence
+   padding, and the card's bitwise the CPU's;
 3. the im2col sign-off layer ``cordic_activation(conv1d_q(x, w, b),
    "relu")`` at each canonical conv (B = 8), K1 at M = B*L then K3b:
    bitwise against the same expression on the CPU, and against the fused
@@ -47,10 +55,12 @@ failure (no phase catches its own failure and carries on):
    host features, and ``int8_ondevice`` through the driver
    (``repro_torch.launch.monitor.main`` with ``--artifact`` and
    ``--device-features``).  Launch counters must show every block going
-   through its kernels; scores must equal a ``device="cpu"`` run (bitwise
-   for int8, within 1e-5 for the mixed cell) or, for the on-device cell,
-   a batched raw-window forward on the card (bitwise), with the card's
-   features within ``PARITY_ATOL`` of the CPU's.
+   through its kernels (the mixed cell's float layers through
+   ``project_rows``); scores and events must equal a ``device="cpu"`` run
+   bitwise (the mixed cell too: its float layers sum in one fixed order on
+   both devices) or, for the on-device cell, a batched raw-window forward
+   on the card (bitwise), with the card's features within ``PARITY_ATOL``
+   of the CPU's.
 
 6. the fleet (``FleetSupervisor``, two workers) over the int8 cell's
    artifact and scene: the sequential and the lane fleet equal phase 5's
@@ -67,9 +77,18 @@ failure (no phase catches its own failure and carries on):
    fleet, revive and ``restore_from_dir`` time (CUDA events), checkpoint
    and WAL bytes a round, and the phase's seconds.
 
+7. sharded dispatch (``sharded_phase``): the int8, pruned_mixed and
+   on-device int8 cells of phase 5 served by ``MonitorEngine`` over meshes
+   of 2 and 4 entries of one card (and over every card when there are
+   several): scores and events bitwise the unsharded engine's, and every
+   block exactly k x one forward's kernel launches; the driver's
+   ``--shards 1`` run equals its plain run.  One ``sharded`` line a case,
+   with windows/s and round p50.
+
 Then K2 is timed at every tile and stage count it takes and K1 at other
-splits of K, and every serving call of both again with the card held busy
-before each call (the ``tile_sweep`` lines).  With ``--parent DIR``, K1's
+splits of K, each held to the chosen tiling's int32 accumulators and
+outputs (no tiling may change them), and every serving call of both again
+with the card held busy before each call (the ``tile_sweep`` lines).  With ``--parent DIR``, K1's
 and K2's device time at every serving layer is
 then taken for DIR's kernels and this tree's in fresh processes, in the
 order parent, change, change, parent (the ``kernel_compare`` line).
@@ -102,7 +121,6 @@ ISSUE_LANES_PER_SM = 128
 SEED = 20261016
 N_STREAMS, SECONDS, SLOTS = 8, 4.0, 8
 MIXED_POLICY = "conv0/w=bf16,dense1/w=fp32"
-MIXED_ATOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -504,11 +522,14 @@ def conv_cost(args):
 #: K3's row widths: the serving path's 2, both sides of the register path's
 #: 32, and rows summed in windows of 32
 K3_COLS = (1, 2, 5, 31, 32, 33, 100)
+#: K3's wide rows, a block a row: one level of windows and more, up to the
+#: widest it takes (``cordic_act.K3_MAX_COLS``, appended in ``kernel_phase``)
+K3_WIDE_COLS = (1025, 2048, 4096)
 
 
 def kernel_phase(torch, dev, gpu_line, sass):
     from repro_torch.kernels.conv1d_fused import conv1d_fused_q, conv1d_fused_q_plain
-    from repro_torch.kernels.cordic_act import cordic_softmax, cordic_softmax_plain
+    from repro_torch.kernels.cordic_act import K3_MAX_COLS, cordic_softmax, cordic_softmax_plain
     from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 
     gen = torch.Generator().manual_seed(SEED)
@@ -584,6 +605,21 @@ def kernel_phase(torch, dev, gpu_line, sass):
         k3_err = max(k3_err, max_abs(torch, got, want))
         print(f"kernel_check cordic_softmax shape={tuple(x.shape)} bitwise={ok} max_abs_err={k3_err}")
         check(ok, f"cordic_softmax disagrees with its plain version at {tuple(x.shape)}")
+    k3_wide = None
+    for cols in (*K3_WIDE_COLS, K3_MAX_COLS):
+        x = (torch.randn((4, cols), generator=gen) * 4).to(dev)
+        x[0, 7] = 80.0
+        if cols == 4096:
+            k3_wide = x
+        got = cordic_softmax(x)
+        torch.cuda.synchronize()
+        want = cordic_softmax_plain(x)
+        ok = bitwise(torch, got, want)
+        k3_err = max(k3_err, max_abs(torch, got, want))
+        print(f"kernel_check cordic_softmax wide shape={tuple(x.shape)} bitwise={ok} "
+              f"max_abs_err={k3_err}")
+        check(ok, f"cordic_softmax disagrees with its plain version at {tuple(x.shape)}")
+    check(k3_wide is not None, "no 4,096-column K3 case")
 
     # timing at the serving shapes (one forward's launches of each kernel),
     # each layer beside its bound; a serving call is one device operation
@@ -656,6 +692,18 @@ def kernel_phase(torch, dev, gpu_line, sass):
         "bound_share": max(k3_bound, floor) / k3_ms,
         "sass_per_value": sass["per_value"]["softmax_row"],
         "kernel_ops": k3_ops, "plain_ops": len(k3_plain_ops), "gpu": gpu_line,
+    }))
+
+    # K3 on wide rows (no serving caller): a block a row, timed beside its
+    # bytes bound (the SASS count above is the register path's)
+    wide_ms, wide_ops = device_time(torch, lambda: cordic_softmax(k3_wide))
+    wide_b, wide_by = bound_ms(8 * k3_wide.numel(), 0, INT8_OPS_PER_S)
+    print("kernel_time " + json.dumps({
+        "kernel": "cordic_softmax", "layer": "wide rows", "shape": list(k3_wide.shape),
+        "ms": wide_ms, "kernel_ops": wide_ops,
+        "plain_ms": time_ms(torch, lambda: cordic_softmax_plain(k3_wide), iters=10),
+        "library_ms": time_ms(torch, lambda: torch.softmax(k3_wide, dim=-1)),
+        "bound_ms": wide_b, "bound_by": wide_by, "launch_floor_ms": floor, "gpu": gpu_line,
     }))
 
     def total_bound(cases, cost):
@@ -807,6 +855,96 @@ def frontend_primitive_phase(torch, np, dev, gpu_line):
         "project_rows": dict(name="project_rows", **common, **p_line),
         "row_sum": dict(name="row_sum", **common, **s_line),
     }
+
+
+#: the float layers' row products (R, K, N) at 8 slots: dense0 of a float
+#: dense0 policy at full and pruned width, pruned_mixed's fp32 dense1, and
+#: the im2col rows of its bf16 conv0
+FLOAT_LAYER_SHAPES = {"dense0": (8, 35072, 64), "dense0_pruned": (8, 8704, 64),
+                      "dense1": (8, 64, 2), "conv0_im2col": (8768, 3, 64)}
+#: float dense0 policies whose row independence is checked at full width
+FLOAT_POLICIES = ("dense0/w=fp32", "dense0/w=bf16")
+
+
+def float_layer_phase(torch, np, dev, gpu_line):
+    """``project_rows`` at the float layers' shapes (bitwise against its
+    plain version, timed beside its bound, ``torch.matmul`` and the plain
+    version), then the float layers at full width: with a float dense0
+    (K = 35,072) a row's logits and probabilities do not depend on its
+    co-batch, and the card gives the CPU's bits.  Returns the shapes'
+    numbers."""
+    from repro_torch.core.precision_policy import PrecisionPolicy
+    from repro_torch.data import features
+    from repro_torch.kernels.frontend import project_rows, project_rows_plain
+    from repro_torch.models import cnn1d
+    from repro_torch.serving import accelerator as acc
+    from repro_torch.serving.quantized_params import quantize_params
+
+    rng = np.random.default_rng(SEED + 6)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    lines = {}
+    for name, (r, k, n) in FLOAT_LAYER_SHAPES.items():
+        x, m = rand(r, k), rand(k, n)
+        got = project_rows(x, m)
+        torch.cuda.synchronize()
+        want = project_rows_plain(x, m)
+        check(bitwise(torch, got, want), f"project_rows disagrees at the float layer {name}")
+        t_k = time_ms(torch, lambda: project_rows(x, m), iters=20)
+        if k > 1000:
+            # a launch a k: too many device ops for a trace, so CUDA events
+            # around two calls (host gaps included)
+            project_rows_plain(x, m)
+            t_p = events_ms(torch, lambda: project_rows_plain(x, m), iters=2)
+        else:
+            t_p = time_ms(torch, lambda: project_rows_plain(x, m), iters=10)
+        b_ms, b_by = bound_ms(4 * (r * k + k * n + r * n), 2 * r * k * n, FP32_OPS_PER_S)
+        lines[name] = dict(layer=name, shape=[r, k, n], ms=t_k, plain_ms=t_p,
+                           library_ms=time_ms(torch, lambda: torch.matmul(x, m)),
+                           bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t_k,
+                           max_abs_err=max_abs(torch, got, want))
+        print("kernel_time " + json.dumps({"kernel": "project_rows", **lines[name],
+                                           "plain_timing": "CUDA events" if k > 1000 else "CUPTI",
+                                           "gpu": gpu_line}))
+
+    cfg = cnn1d.CANONICAL
+    params = cnn1d.init_params(cfg, torch.Generator().manual_seed(SEED))
+    feats = features.batch_features(scene_windows(np, 8, SEED + 7), "mfcc20")
+    feats *= (10.0 ** rng.uniform(-2, 2, (8, 1))).astype(np.float32)
+    x = torch.from_numpy(feats).to(dev)
+    perm = torch.from_numpy(rng.permutation(8)).to(dev)
+    padded = torch.cat([x[:3], torch.zeros((5, x.shape[1]), device=dev)])
+    softmax = acc.cordic_softmax
+    for policy in FLOAT_POLICIES:
+        qp = quantize_params(params, cfg, policy=PrecisionPolicy.parse(policy, default="int8"),
+                             device=dev)
+        qp_cpu = qp.to("cpu")
+        for out in ("logits", "probabilities"):
+            if out == "logits":  # the softmax's Q15.16 input would hide an ulp
+                acc.cordic_softmax = lambda h: h
+            try:
+                def fwd(rows, art=qp):
+                    return acc.accelerator_forward(art, rows, cfg, device=art.device)
+
+                full = fwd(x)
+                same = [bitwise(torch, full[perm], fwd(x[perm])),
+                        bitwise(torch, full[:3], fwd(padded)[:3])]
+                for size in (1, 3):
+                    same += [bitwise(torch, full[i:i + size], fwd(x[i:i + size]))
+                             for i in range(0, 8 - size + 1, size)]
+                check(all(same), f"{policy}: a row's {out} depend on its co-batch on the card")
+                cpu = fwd(x.cpu(), qp_cpu)
+                check(bitwise(torch, full.cpu(), cpu),
+                      f"{policy}: card {out} differ from the CPU's "
+                      f"(max |d| {max_abs(torch, full.cpu(), cpu)})")
+            finally:
+                acc.cordic_softmax = softmax
+        print(f"float_layers {policy} (K = {qp.denses[0]['w'].shape[0]}): logits and "
+              f"probabilities bitwise independent of batch size 1/3/8, permutation and "
+              f"silence padding; card == CPU bitwise")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -1016,12 +1154,29 @@ def serve(engine, audio, chunks):
     return scores, engine.finalize(), wall, round_s
 
 
+def launches_per_forward(qp, *, raw: bool) -> dict[str, int]:
+    """Kernel launches of one forward of the artifact ``qp``: K2 a 8-bit
+    conv, K1 a 8-bit dense layer, ``project_rows`` a float layer, K3 once;
+    with ``raw`` the mfcc20 front-end's two projections and eight row sums."""
+    conv_modes, dense_modes = qp.layer_modes
+    eight_bit = ("int8", "fxp8")
+    return {
+        "conv1d_fused_q": sum(m in eight_bit for m in conv_modes),
+        "quant_matmul": sum(m in eight_bit for m in dense_modes),
+        "cordic_softmax": 1,
+        "project_rows": sum(m not in eight_bit for m in conv_modes + dense_modes)
+        + (2 if raw else 0),
+        "row_sum": 8 if raw else 0,
+    }
+
+
 def engine_phase(torch, np, dev, gpu_line):
     from repro_torch.core.precision_policy import PrecisionPolicy
     from repro_torch.core.pruning import plan_prune
     from repro_torch.data import features
     from repro_torch.kernels.conv1d_fused import conv1d_fused_q
     from repro_torch.kernels.cordic_act import cordic_softmax
+    from repro_torch.kernels.frontend import project_rows
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.models import cnn1d
     from repro_torch.serving.accelerator import accelerator_forward
@@ -1038,7 +1193,7 @@ def engine_phase(torch, np, dev, gpu_line):
     }
     audio, chunks = make_audio(np, features)
     n_windows = N_STREAMS * int(SECONDS / features.WINDOW_S)
-    kernels = (quant_matmul, conv1d_fused_q, cordic_softmax)
+    kernels = (quant_matmul, conv1d_fused_q, cordic_softmax, project_rows)
     launches = {k.__name__: 0 for k in kernels}
     runs = {}
     for cell, kw in cells.items():
@@ -1059,11 +1214,9 @@ def engine_phase(torch, np, dev, gpu_line):
             launches[name] += c
         conv_modes, dense_modes = gpu.artifact.layer_modes
         blocks = gpu.forward_calls
-        want = {
-            "conv1d_fused_q": blocks * sum(m == "int8" for m in conv_modes),
-            "quant_matmul": blocks * sum(m == "int8" for m in dense_modes),
-            "cordic_softmax": blocks,
-        }
+        want = {name: blocks * n
+                for name, n in launches_per_forward(gpu.artifact, raw=False).items()
+                if name in counts}
         print(f"engine_launches cell={cell} blocks={blocks} counts={counts} expected={want}")
         check(counts == want, f"{cell}: kernel launches {counts} != {want}")
         check(len(scores) == n_windows, f"{cell}: {len(scores)} windows scored, want {n_windows}")
@@ -1103,15 +1256,8 @@ def engine_phase(torch, np, dev, gpu_line):
         got = [dataclasses.astuple(w) for w in scores]
         ref = [dataclasses.astuple(w) for w in cpu_scores]
         dp = max(abs(a[2] - b[2]) for a, b in zip(got, ref))
-        if cell == "int8":
-            check(got == ref, f"{cell}: card scores differ from the CPU run (max |dp| {dp})")
-            check(events == cpu_events, f"{cell}: card events differ from the CPU run")
-        else:
-            check([a[:2] for a in got] == [b[:2] for b in ref], f"{cell}: window order differs")
-            check(dp <= MIXED_ATOL, f"{cell}: card vs CPU max |dp| {dp} > {MIXED_ATOL}")
-            key = [[(e.onset_idx, e.offset_idx) for e in evs] for evs in events]
-            check(key == [[(e.onset_idx, e.offset_idx) for e in evs] for evs in cpu_events],
-                  f"{cell}: card events differ from the CPU run")
+        check(got == ref, f"{cell}: card scores differ from the CPU run (max |dp| {dp})")
+        check(events == cpu_events, f"{cell}: card events differ from the CPU run")
         runs[cell] = (gpu.artifact, scores, events)
         n_events = sum(len(e) for e in events)
         print("engine " + json.dumps({
@@ -1173,8 +1319,7 @@ def ondevice_phase(torch, np, dev, gpu_line):
         counts = {k.__name__: k.launches for k in kernels}
         qp = run.engine.artifact
         blocks = run.engine.forward_calls
-        want = {"quant_matmul": 2 * blocks, "conv1d_fused_q": 3 * blocks,
-                "cordic_softmax": blocks, "project_rows": 2 * blocks, "row_sum": 8 * blocks}
+        want = {name: blocks * n for name, n in launches_per_forward(qp, raw=True).items()}
         print(f"engine_launches cell=int8_ondevice blocks={blocks} counts={counts} expected={want}")
         check(counts == want, f"int8_ondevice: kernel launches {counts} != {want}")
         n_windows = N_STREAMS * int(SECONDS / features.WINDOW_S)
@@ -1567,6 +1712,122 @@ def fleet_phase(torch, np, dev, gpu_line, artifact, mono_scores, mono_events):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: sharded dispatch
+# ---------------------------------------------------------------------------
+
+#: shard counts run as entries of one card (the ROADMAP M8 gate on one H100)
+SHARD_COUNTS = (2, 4)
+
+
+def sharded_phase(torch, np, dev, gpu_line, runs):
+    """Phase 5's int8 and pruned_mixed cells, and the on-device int8 cell,
+    served by ``MonitorEngine`` over meshes of 2 and 4 entries of one card
+    (and over every card when the host has several): scores and events
+    bitwise the unsharded engine's, every block exactly k x one forward's
+    launches; then the driver's ``--shards 1`` run against its plain run.
+    Returns the sharded runs' launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.data import features
+    from repro_torch.distributed.sharding import StreamMesh, stream_mesh
+    from repro_torch.kernels.conv1d_fused import conv1d_fused_q
+    from repro_torch.kernels.cordic_act import cordic_softmax
+    from repro_torch.kernels.frontend import project_rows, row_sum
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.launch import monitor
+    from repro_torch.models import cnn1d
+    from repro_torch.serving.engine import MonitorEngine
+    from repro_torch.serving.quantized_params import quantize_params, save_artifact
+
+    cfg = cnn1d.CANONICAL
+    audio, chunks = make_audio(np, features)
+    kernels = (quant_matmul, conv1d_fused_q, cordic_softmax, project_rows, row_sum)
+    meshes = {}
+    for k in SHARD_COUNTS:
+        mesh = StreamMesh((dev,) * k)
+        meshes[f"{mesh.devices[0]}x{k}"] = mesh
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes[f"cards{n_cards}"] = stream_mesh(n_cards)
+    params = cnn1d.init_params(cfg, torch.Generator().manual_seed(SEED))
+    cells = {"int8": (runs["int8"][0], False), "pruned_mixed": (runs["pruned_mixed"][0], False),
+             "int8_ondevice": (quantize_params(params, cfg, feature_kind="mfcc20", device=dev),
+                               True)}
+    launches: dict[str, int] = {}
+
+    def counted(engine):
+        engine.precompile()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        out = serve(engine, audio, chunks)
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in kernels}
+
+    for cell, (art, raw) in cells.items():
+        kw = dict(n_streams=N_STREAMS, feature_kind="mfcc20", on_device_features=raw,
+                  batch_slots=SLOTS, device=dev)
+        base = MonitorEngine(art, cfg, **kw)
+        (b_scores, b_events, b_wall, b_rounds), _ = counted(base)
+        b_key = [dataclasses.astuple(w) for w in b_scores]
+        if cell in runs:
+            check(b_key == [dataclasses.astuple(w) for w in runs[cell][1]]
+                  and b_events == runs[cell][2], f"sharded {cell}: the unsharded engine "
+                  f"differs from phase 5's card run")
+        per_forward = launches_per_forward(art, raw=raw)
+        for label, mesh in meshes.items():
+            eng = MonitorEngine(art, cfg, mesh=mesh, **kw)
+            (scores, events, wall, rounds), counts = counted(eng)
+            k, blocks = mesh.size, eng.forward_calls
+            want = {name: k * n * blocks for name, n in per_forward.items()}
+            print(f"sharded_launches cell={cell} mesh={label} blocks={blocks} counts={counts} "
+                  f"expected={want}")
+            check(counts == want, f"sharded {cell} over {label}: launches {counts} != {want}")
+            check([dataclasses.astuple(w) for w in scores] == b_key,
+                  f"sharded {cell} over {label}: scores differ from the unsharded engine")
+            check(events == b_events, f"sharded {cell} over {label}: events differ")
+            for name, c in counts.items():
+                launches[name] = launches.get(name, 0) + c
+            print("sharded " + json.dumps({
+                "cell": cell, "mesh": label, "shards": k,
+                "devices": sorted({str(d) for d in mesh.devices}), "windows": len(scores),
+                "blocks": blocks, "windows_per_s": len(scores) / wall,
+                "round_p50_ms": statistics.median(rounds) * 1e3,
+                "unsharded_windows_per_s": len(b_scores) / b_wall,
+                "unsharded_round_p50_ms": statistics.median(b_rounds) * 1e3,
+                "scores_events_bitwise": True, "gpu": gpu_line,
+            }))
+
+    # the driver: --shards 1 (and --shards <every card>) against its plain run
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "detector_int8_ondevice.npz"
+        save_artifact(path, cells["int8_ondevice"][0].to("cpu"))
+        argv = ["--artifact", str(path), "--device-features", "--streams", str(N_STREAMS),
+                "--duration", str(SECONDS), "--slots", str(SLOTS), "--seed", str(SEED)]
+
+        def drive(extra):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                run = monitor.main([*argv, *extra])
+            return run, log.getvalue()
+
+        plain, _ = drive([])
+        for k in sorted({1, max(1, n_cards)}):
+            run, log = drive(["--shards", str(k)])
+            check(f"sharded dispatch over {k} device(s)" in log and run.engine.shards == k,
+                  f"driver --shards {k}: no sharded dispatch")
+            check([dataclasses.astuple(w) for w in run.scores]
+                  == [dataclasses.astuple(w) for w in plain.scores]
+                  and run.events == plain.events,
+                  f"driver --shards {k}: scores or events differ from the plain run")
+            print(f"sharded driver --shards {k}: {len(run.scores)} windows, scores and events "
+                  f"== the plain driver run")
+    return launches
+
+
 #: K1's and K2's layers at 8 slots: (kernel, shape) as _qmm_case / _conv_case take them
 COMPARE_LAYERS = {
     "dense0": ("quant_matmul", (8, 35072, 64)), "dense0_pruned": ("quant_matmul", (8, 8704, 64)),
@@ -1628,9 +1889,11 @@ def sweep_phase(torch, dev, gpu_line) -> None:
     """K2's device time for every tile and stage count the kernel takes,
     and K1's for other splits of K, at the serving layers and at other
     batch sizes (B = 1, 32): what the tiling functions choose, beside what
-    they could have chosen; and every serving call of K1 and K2 timed
-    again with the card held busy before each call (``held_clock_ms``).
-    One ``tile_sweep`` line a case."""
+    they could have chosen, each tiling's int32 accumulators and outputs
+    held bitwise to the chosen one's (the reference's contract that no
+    tiling changes the accumulators, ``tests/test_tiling.py``); and every
+    serving call of K1 and K2 timed again with the card held busy before
+    each call (``held_clock_ms``).  One ``tile_sweep`` line a case."""
     import dataclasses as dc
 
     from repro_torch.kernels import conv1d_fused as tconv
@@ -1644,15 +1907,22 @@ def sweep_phase(torch, dev, gpu_line) -> None:
                              ("conv2_b32", (32, 274, 128, 256, 3))):
             args, kw = _conv_case(torch, gen, dev, *shape)
             base = chosen_conv(*shape)
+            want_out = tconv.conv1d_fused_q(*args, **kw)
+            want_acc = tconv.conv1d_fused_q(*args[:4], return_acc=True)
             for bm, bn in ((64, 64), (32, 64), (64, 32), (32, 32)):
                 for stages in (2, 4):
                     tile = dc.replace(base, bm=bm, bn=bn, stages=stages)
                     tconv.conv_tiling = lambda *a, t=tile: t
+                    same = (bitwise(torch, tconv.conv1d_fused_q(*args[:4], return_acc=True),
+                                    want_acc)
+                            and bitwise(torch, tconv.conv1d_fused_q(*args, **kw), want_out))
+                    check(same, f"K2 {label} at tile {bm}x{bn}, {stages} stages: accumulators "
+                                f"or outputs differ from the chosen tile's")
                     ms = time_ms(torch, lambda: tconv.conv1d_fused_q(*args, **kw))
                     print("tile_sweep " + json.dumps({
                         "layer": label, "bm": bm, "bn": bn, "stages": stages, "ms": ms,
                         "chosen": (bm, bn, stages) == (base.bm, base.bn, base.stages),
-                        "gpu": gpu_line}))
+                        "acc_and_out_equal_chosen": same, "gpu": gpu_line}))
             tconv.conv_tiling = chosen_conv
             ms = time_ms(torch, lambda: tconv.conv1d_fused_q(*args[:4], return_acc=True))
             print("tile_sweep " + json.dumps({"layer": label, "return_acc": True, "ms": ms,
@@ -1670,14 +1940,21 @@ def sweep_phase(torch, dev, gpu_line) -> None:
         for label, (m, k, n) in (("dense0", (8, 35072, 64)), ("dense0_pruned", (8, 8704, 64))):
             args, kw = _qmm_case(torch, gen, dev, m, k, n, act="relu")
             base = chosen_qmm(m, k, n)
+            want_out = tqmm.quant_matmul(*args, **kw)
+            want_acc = tqmm.quant_matmul(*args[:4], return_acc=True)
             chunks = -(-k // tqmm.CHUNK_K)
             for per_block in (1, 2, 4, 8):
                 tile = dc.replace(base, chunks_per_block=per_block, splits=-(-chunks // per_block))
                 tqmm.qmm_tiling = lambda *a, t=tile: t
+                same = (bitwise(torch, tqmm.quant_matmul(*args[:4], return_acc=True), want_acc)
+                        and bitwise(torch, tqmm.quant_matmul(*args, **kw), want_out))
+                check(same, f"K1 {label} at {per_block} chunks a block ({tile.splits} splits): "
+                            f"accumulators or outputs differ from the chosen split's")
                 ms = time_ms(torch, lambda: tqmm.quant_matmul(*args, **kw))
                 print("tile_sweep " + json.dumps({
                     "layer": label, "chunks_per_block": per_block, "splits": tile.splits,
-                    "ms": ms, "chosen": tile == base, "gpu": gpu_line}))
+                    "ms": ms, "chosen": tile == base, "acc_and_out_equal_chosen": same,
+                    "gpu": gpu_line}))
     finally:
         tconv.conv_tiling, tqmm.qmm_tiling = chosen_conv, chosen_qmm
 
@@ -1744,6 +2021,7 @@ def main(argv: list[str] | None = None) -> int:
         kernels = kernel_phase(torch, dev, gpu_line, sass)
         k3b_err = cordic_phase(torch, np, dev, gpu_line, sass)
         kernels.update(frontend_primitive_phase(torch, np, dev, gpu_line))
+        float_layer_phase(torch, np, dev, gpu_line)
         launches: dict[str, int] = {}
 
         def add(counts):
@@ -1760,6 +2038,7 @@ def main(argv: list[str] | None = None) -> int:
         add(engine_launches)
         add(ondevice_phase(torch, np, dev, gpu_line))
         add(fleet_phase(torch, np, dev, gpu_line, *runs["int8"]))
+        add(sharded_phase(torch, np, dev, gpu_line, runs))
         sweep_phase(torch, dev, gpu_line)
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of the SHIELD8-UAV detector serving path.
 
 The package mirrors ``repro``'s layout (``core``, ``models``, ``kernels``,
-``serving``, ``data``) so each module's counterpart is easy to find.  It
+``serving``, ``data``, ``distributed``) so each module's counterpart is easy
+to find.  It
 imports ``torch`` and numpy only: nothing of JAX and nothing of ``repro``.
 
 Public functions keep the reference's NWC activation layout ``(B, L, C)``

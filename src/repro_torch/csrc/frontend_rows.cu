@@ -21,20 +21,26 @@
 // 32, the zero padding split between both ends, each window summed from 0,
 // and the window sums are reduced again by the same rule.  One block per
 // row, one thread per window of the first level; thread 0 runs the short
-// later levels in place (window c of a level reads from index 32 c - 15 on,
-// past every sum written before it).
+// later levels in place (xla_sum::reduce_levels).
 //
-// What bounds them on the H100: at the serving shapes (8 windows: 408 x 513
-// @ 513 x 64 for the mel projection, rows of 12 to 1096 values for the
-// sums) both are tiny and bound by launch latency and by the serial
-// dependence of each fixed-order sum, not by bytes or operations.
+// project_rows also computes every bf16/fp32 layer of the datapath
+// (serving/accelerator.py): a dense layer as (B, K) @ (K, N), a conv as its
+// im2col rows (B*L, K*Cin) @ (K*Cin, Cout), so that a float layer's row has
+// the same bits at every batch size and on the CPU (its plain twin sums in
+// the same order).
+//
+// What bounds them on the H100: at the front-end's serving shapes (8
+// windows: 408 x 513 @ 513 x 64 for the mel projection, rows of 12 to 1096
+// values for the sums) both are tiny and bound by launch latency and by the
+// serial dependence of each fixed-order sum, not by bytes or operations.
+// The float dense layers are the extreme: dense0 at the canonical width
+// (8 x 35,072 @ 35,072 x 64) is 512 threads, each a 35,072-long chain of
+// dependent adds.
 #include <cuda_runtime.h>
 
 #include "xla_sum.cuh"
 
 namespace {
-
-constexpr int kMaxWindows = 1024;  // first-level windows a block holds
 
 __global__ void project_rows_kernel(const float* __restrict__ x,
                                     const float* __restrict__ m,
@@ -52,9 +58,9 @@ __global__ void project_rows_kernel(const float* __restrict__ x,
 
 __global__ void row_sum_kernel(const float* __restrict__ x,
                                float* __restrict__ out, int n) {
-  __shared__ float sums[kMaxWindows];
+  __shared__ float sums[xla_sum::kMaxWindows];
   const float* xr = x + (size_t)blockIdx.x * n;
-  xla_sum::Split sp = xla_sum::split(n);
+  const xla_sum::Split sp = xla_sum::split(n);
   if (sp.windows == 1) {  // left to right from the first value
     if (threadIdx.x == 0) {
       float acc = xr[0];
@@ -66,16 +72,7 @@ __global__ void row_sum_kernel(const float* __restrict__ x,
   for (int c = threadIdx.x; c < sp.windows; c += blockDim.x)
     sums[c] = xla_sum::window_sum(xr, n, sp.lo, c);
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  int count = sp.windows;
-  while (count > xla_sum::kSumWindow) {
-    sp = xla_sum::split(count);
-    for (int c = 0; c < sp.windows; ++c) sums[c] = xla_sum::window_sum(sums, count, sp.lo, c);
-    count = sp.windows;
-  }
-  float acc = sums[0];
-  for (int i = 1; i < count; ++i) acc = __fadd_rn(acc, sums[i]);
-  out[blockIdx.x] = acc;
+  if (threadIdx.x == 0) out[blockIdx.x] = xla_sum::reduce_levels(sums, sp.windows);
 }
 
 }  // namespace
@@ -92,10 +89,10 @@ extern "C" int project_rows_f32(const void* x, const void* m, void* out, int R,
   return cudaGetLastError();
 }
 
-// x: (R, n) fp32 contiguous, out: (R,) fp32; n <= 32 * kMaxWindows
+// x: (R, n) fp32 contiguous, out: (R,) fp32; n <= 32 * xla_sum::kMaxWindows
 extern "C" int row_sum_f32(const void* x, void* out, int R, int n, void* stream) {
   if (R <= 0) return cudaSuccess;
-  if (n <= 0 || xla_sum::split(n).windows > kMaxWindows) return cudaErrorInvalidValue;
+  if (n <= 0 || xla_sum::split(n).windows > xla_sum::kMaxWindows) return cudaErrorInvalidValue;
   row_sum_kernel<<<R, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), n);
   return cudaGetLastError();

@@ -5,12 +5,15 @@
 // padding split between both ends (the low end takes the smaller half),
 // each window summed from 0 in order, and the window sums reduced again by
 // the same rule, level after level.  Kernel K3 (cordic_softmax.cu) and
-// row_sum (frontend_rows.cu) take the window split from here.
+// row_sum (frontend_rows.cu) take the window split and the later levels
+// from here; a block holds up to kMaxWindows first-level window sums, so
+// both take rows of up to kSumWindow * kMaxWindows values.
 #pragma once
 
 namespace xla_sum {
 
 constexpr int kSumWindow = 32;
+constexpr int kMaxWindows = 1024;  // first-level windows a block holds
 
 struct Split {
   int windows;  // windows of one level
@@ -32,6 +35,21 @@ __device__ __forceinline__ float window_sum(const float* v, int n, int lo, int j
     const int c = j * kSumWindow + i - lo;
     acc = __fadd_rn(acc, c >= 0 && c < n ? v[c] : 0.0f);
   }
+  return acc;
+}
+
+// The sum of count first-level window sums, reduced in place level after
+// level by the same rule (window c of a level reads from index 32 c - 15
+// on, past every sum written before it), the last level left to right from
+// its first value.  One thread runs it.
+__device__ __forceinline__ float reduce_levels(float* sums, int count) {
+  while (count > kSumWindow) {
+    const Split sp = split(count);
+    for (int c = 0; c < sp.windows; ++c) sums[c] = window_sum(sums, count, sp.lo, c);
+    count = sp.windows;
+  }
+  float acc = sums[0];
+  for (int i = 1; i < count; ++i) acc = __fadd_rn(acc, sums[i]);
   return acc;
 }
 

@@ -7,8 +7,9 @@ repeated, arithmetic right shifts), so the port reproduces the RTL unit's
 numbers, not merely the maths.
 
 * :func:`cordic_softmax` is the classifier head of the serving path.  On a
-  CUDA tensor it launches kernel K3 (``csrc/cordic_softmax.cu``, one warp
-  per row held in registers); on a CPU tensor it runs
+  CUDA tensor it launches kernel K3 (``csrc/cordic_softmax.cu``: one warp
+  per row held in registers for rows of up to 32 values, one block per
+  wider row, up to :data:`K3_MAX_COLS`); on a CPU tensor it runs
   :func:`cordic_softmax_plain`.
 * :func:`cordic_activation` is the elementwise unit for all seven modes.
   On a CUDA tensor it launches kernel K3b (``csrc/cordic_act.cu``, four
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.core.f32_math import INV_LN2_F32, LN2_F32, exp2_f32, fma_f32, relu
 from repro_torch.kernels import backend
-from repro_torch.kernels.xla_sum import SUM_WINDOW, xla_row_sum
+from repro_torch.kernels.xla_sum import MAX_ROW, xla_row_sum
 
 F = 16  # fraction bits (Q15.16)
 ONE = 1 << F
@@ -184,8 +185,9 @@ def cordic_activation(x: torch.Tensor, mode: str = "tanh") -> torch.Tensor:
 cordic_activation.launches = 0
 
 
-#: the widest row kernel K3 takes: its window sums fit one level
-K3_MAX_COLS = SUM_WINDOW * SUM_WINDOW
+#: the widest row kernel K3 takes: its first-level window sums fit one
+#: block's shared memory
+K3_MAX_COLS = MAX_ROW
 
 
 def cordic_softmax_plain(x: torch.Tensor) -> torch.Tensor:

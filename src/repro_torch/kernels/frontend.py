@@ -1,4 +1,5 @@
-"""The DSP front-end's per-row primitives, with batch-independent bits.
+"""Per-row primitives with batch-independent bits: the DSP front-end's
+projections and row sums, and the float layers' sums.
 
 No TPU kernel stands behind this module: the reference computes its
 front-end (``repro/data/features_jax.py``) with XLA's own ops and runs the
@@ -6,10 +7,15 @@ two projections under ``jax.lax.map`` so that their bits cannot depend on
 the batch.  On the card three library paths would break that contract:
 cuBLAS picks its kernel by shape, PyTorch's reductions split a row's sum
 according to the whole tensor's shape, and cuFFT plans depend on the batch
-count.  The port therefore fixes the order of every sum itself:
+count.  PyTorch's CPU matmul, too, picks its blocking by batch size.  The
+port therefore fixes the order of every sum itself:
 
 * :func:`project_rows` (``(R, K) @ (K, N)``) sums over ``k`` in ascending
-  order, each product and each sum rounded on its own;
+  order, each product and each sum rounded on its own.  It computes the
+  mel and DCT-II projections of the front-end, and every bf16/fp32 dense
+  and conv layer of the datapath (``serving/accelerator.py``: a conv as the
+  product of its im2col rows), so a float layer's row has the same bits at
+  any batch size and on either device;
 * :func:`row_sum` sums each row in the order of the reference's CPU
   compiler (``jnp.sum``): left to right up to 32 values, and beyond in
   XLA's windows of exactly 32, level after level (``kernels/xla_sum.py``,
@@ -26,10 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.xla_sum import xla_row_sum
-
-#: rows the CUDA row_sum takes are at most this long (1,024 first windows)
-MAX_ROW = 32 * 1024
+from repro_torch.kernels.xla_sum import MAX_ROW, xla_row_sum
 
 
 def _check_2d(x: torch.Tensor, name: str) -> None:
@@ -42,14 +45,25 @@ def _check_2d(x: torch.Tensor, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: products the plain twin forms at once (a chunk of k), at most
+_PLAIN_CHUNK_VALUES = 1 << 22
+
+
 def project_rows_plain(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Plain twin of :func:`project_rows`: ``acc += x[:, k] * m[k]`` for
-    ascending ``k``, starting from 0."""
+    ascending ``k``, starting from 0.  The products of a chunk of ``k`` are
+    formed in one operation (each rounded on its own, as in the loop), then
+    added in order."""
     _check_2d(x, "x")
     _check_2d(m, "m")
-    acc = torch.zeros((x.shape[0], m.shape[1]), dtype=torch.float32, device=x.device)
-    for k in range(x.shape[1]):
-        acc = acc + x[:, k : k + 1] * m[k : k + 1, :]
+    r, k = x.shape
+    n = m.shape[1]
+    acc = torch.zeros((r, n), dtype=torch.float32, device=x.device)
+    step = max(1, _PLAIN_CHUNK_VALUES // max(1, r * n))
+    for k0 in range(0, k, step):
+        prods = x[:, k0 : k0 + step, None] * m[None, k0 : k0 + step, :]
+        for j in range(prods.shape[1]):
+            acc = acc + prods[:, j]
     return acc
 
 

@@ -10,8 +10,8 @@ the window sums reduced again by the same rule, level after level.
 This is the port's one definition of that rule.  The softmax's plain twin
 (``cordic_act.cordic_softmax_plain``) and the front-end's row sum
 (``frontend.row_sum_plain``) both call :func:`xla_row_sum`; on the card
-``csrc/xla_sum.cuh`` carries the same window split for kernels K3 and
-``row_sum``.
+``csrc/xla_sum.cuh`` carries the same window split and later levels for
+kernels K3 and ``row_sum``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,11 @@ import torch
 #: values a window of the tree holds; rows of up to this many are summed
 #: left to right from their first value
 SUM_WINDOW = 32
+#: first-level windows a CUDA block holds (``kMaxWindows`` in
+#: ``csrc/xla_sum.cuh``), and so the longest row the kernels that sum in
+#: this order (K3 and ``row_sum``) take
+MAX_WINDOWS = 1024
+MAX_ROW = SUM_WINDOW * MAX_WINDOWS
 
 
 def window_split(n: int) -> tuple[int, int]:

@@ -32,8 +32,11 @@ plan), ``--lanes threads``, ``--autoscale`` and ``--state-dir DIR`` each
 imply ``--workers 2``; ``--fsync`` and ``--checkpoint-interval`` tune
 ``--state-dir``.  A rerun with the same ``--state-dir`` and seed resumes
 from :meth:`~repro_torch.serving.supervisor.FleetSupervisor.restore_from_dir`
-and re-delivers only what the restored fleet does not hold.  ``--shards``
-exits naming ROADMAP M8.  :func:`main` returns a :class:`MonitorRun`
+and re-delivers only what the restored fleet does not hold.  ``--shards k``
+splits every slot block over ``k`` devices, as in the reference: ``k``
+cards with ``--device cuda`` (fewer cards is an error), ``k`` CPU entries
+with ``--device cpu``; with the fleet flags every worker's engine shards
+its blocks.  :func:`main` returns a :class:`MonitorRun`
 (engine or fleet, scores, events, scenes, timings) instead of the events
 alone.
 """
@@ -145,7 +148,8 @@ def _parser() -> argparse.ArgumentParser:
                          "inline 'conv0/w=bf16,dense1/w=fp32' rules "
                          "(default mode = --precision)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="sharded-batch dispatch over several GPUs (ROADMAP M8)")
+                    help="shard each micro-batch over this many devices "
+                         "(sharded-batch dispatch; bitwise-identical results)")
     ap.add_argument("--feature", default=None, choices=sorted(features.FEATURE_DIMS),
                     help="feature set (default: the artifact's baked kind, else psd)")
     ap.add_argument("--device-features", action="store_true",
@@ -261,6 +265,7 @@ def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine | FleetSup
             precision=args.precision,
             prune=prune_spec,
             policy=policy,
+            shards=args.shards,
             adaptive_slots=args.adaptive_slots,
             admission=admission,
             device=dev,
@@ -302,6 +307,7 @@ def _build_fleet(args, params, cfg, dev, prune_spec, policy, admission) -> Fleet
         feature_kind=args.feature,
         on_device_features=args.device_features,
         batch_slots=args.slots,
+        shards=args.shards,
         adaptive_slots=args.adaptive_slots,
         admission=admission,
         device=dev,
@@ -337,8 +343,6 @@ def _build_fleet(args, params, cfg, dev, prune_spec, policy, admission) -> Fleet
 def main(argv=None) -> MonitorRun:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.shards is not None:
-        raise SystemExit("monitor: --shards (sharded dispatch over several GPUs) is ROADMAP M8")
     if args.trained or (args.artifact is None and not args.random):
         raise SystemExit(
             "monitor: the port cannot train or load the reference's trained "
@@ -363,6 +367,8 @@ def main(argv=None) -> MonitorRun:
     if args.adaptive_slots:
         ladder = engine.precompile()
         print(f"monitor: adaptive slots, warmed ladder {list(ladder)}")
+    if args.shards:
+        print(f"monitor: sharded dispatch over {args.shards} device(s)")
     if args.device_features:
         print(f"monitor: on-device {args.feature} front-end (raw-window dispatch)")
 

@@ -8,10 +8,19 @@ are quantised per request, per sample by default, so each row's result is
 independent of its co-batch (streaming == batched, bitwise).
 
 The artifact's per-layer tags drive dispatch: int8/fxp8 layers take the
-kernels, bf16 layers compute on bf16-rounded operands widened to fp32
-(products exact, fp32 sums), fp32 layers in plain fp32 with TF32 off.  A
-pruned artifact's ``keep_frames`` trims frames between the last pool and the
-flatten, which keeps the reference's ``(frames, channels)`` row-major order.
+kernels; bf16 and fp32 layers sum through the fixed-order row product
+:func:`~repro_torch.kernels.frontend.project_rows` (a dense layer is
+``project_rows(h, w) + b``, a conv ``project_rows`` of its im2col rows),
+bf16 layers on bf16-rounded operands widened to fp32, so that the products
+are exact and only the order of the sums matters.  That order is one
+ascending ``k`` on both devices and at every batch size: no cuBLAS, cuDNN
+or CPU BLAS call, each of which picks its blocking by shape, is left on the
+float path, so a float layer's row is bitwise independent of its co-batch
+and the card gives the CPU's bits.  It is not the reference's order (XLA's
+``einsum`` and conv), so float layers agree with the reference within a
+tolerance (``tests/test_torch_forward.py``).  A pruned artifact's
+``keep_frames`` trims frames between the last pool and the flatten, which
+keeps the reference's ``(frames, channels)`` row-major order.
 
 With ``raw_windows=True`` the forward starts at raw ``(B, 12800)`` audio
 windows: the artifact's baked front-end
@@ -20,28 +29,37 @@ ahead of the first layer.  Its bits are per row, so streaming == batched
 still holds; against host-extracted features it agrees within the
 front-end's ``PARITY_ATOL``, not bitwise.
 
+:func:`accelerator_forward_sharded` splits the rows over the entries of a
+:class:`~repro_torch.distributed.sharding.StreamMesh`, one artifact
+replica an entry, and gives the unsharded forward's bits.
+
 On ``device="cuda"`` (the default) every kernel runs on the card; on
 ``device="cpu"`` the kernels' plain PyTorch versions run.  Without a GPU a
 CUDA request raises.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.f32_math import relu
 from repro_torch.core.quantization import bf16_round, fxp8_quantize, int8_symmetric
 from repro_torch.data.features import N_SAMPLES
 from repro_torch.data.features_torch import feature_rows
+from repro_torch.distributed.sharding import STREAM_AXIS
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q
 from repro_torch.kernels.cordic_act import cordic_softmax
+from repro_torch.kernels.frontend import project_rows
+from repro_torch.kernels.ops import _im2col
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.models.cnn1d import CNNConfig, maxpool2
-from repro_torch.serving.quantized_params import QuantizedParams, quantize_params
+from repro_torch.serving.quantized_params import (
+    QuantizedParams,
+    quantize_params,
+    replicate_params,
+)
 
 
 def _quantizer(layer_mode: str):
@@ -49,19 +67,6 @@ def _quantizer(layer_mode: str):
     reference's jitted forward (``amax * float32(1/127)``)."""
     quant = fxp8_quantize if layer_mode == "fxp8" else int8_symmetric
     return functools.partial(quant, jitted=True)
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """fp32 convolutions and matmuls in full fp32: cuDNN defaults to TF32
-    for convolutions, and the matmul switch is process-wide."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _float_operands(h: torch.Tensor, w: torch.Tensor, lmode: str):
@@ -74,11 +79,12 @@ def _float_operands(h: torch.Tensor, w: torch.Tensor, lmode: str):
 
 
 def _conv1d_float(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """'same' 1-D conv in NWC: (B, L, Cin) x (K, Cin, Cout) -> (B, L, Cout)."""
-    k = w.shape[0]
-    pad_l = (k - 1) // 2
-    hc = F.pad(h.transpose(1, 2), (pad_l, k - 1 - pad_l))
-    return F.conv1d(hc, w.permute(2, 1, 0).contiguous()).transpose(1, 2)
+    """'same' 1-D conv in NWC: (B, L, Cin) x (K, Cin, Cout) -> (B, L, Cout),
+    as the fixed-order product of the im2col rows (B*L, K*Cin) with the
+    weight (K*Cin, Cout)."""
+    bsz, l, _ = h.shape
+    k, cin, cout = w.shape
+    return project_rows(_im2col(h, k), w.reshape(k * cin, cout)).reshape(bsz, l, cout)
 
 
 def forward_quantized(
@@ -95,42 +101,41 @@ def forward_quantized(
     bsz = x.shape[0]
     conv_modes, dense_modes = qp.layer_modes
     h = x[:, :, None].to(torch.float32)
-    with full_fp32():
-        for layer, lmode in zip(qp.convs, conv_modes):
-            if lmode in ("int8", "fxp8"):
-                hq = _quantizer(lmode)(h, axis=act_axis)  # per-request act quant
-                h = conv1d_fused_q(
-                    hq.q,
-                    layer["w"].q,
-                    hq.scale.reshape(-1, 1) if per_sample_acts else hq.scale,
-                    layer["w"].scale,
-                    layer["b"],
-                    act="relu",  # CORDIC ReLU == max(v, 0): fused into the epilogue
-                )
-            else:
-                hin, w = _float_operands(h, layer["w"], lmode)
-                h = relu(_conv1d_float(hin, w) + layer["b"])
-            h = maxpool2(h)
-        if qp.keep_frames is not None:
-            h = h[:, : qp.keep_frames, :]  # pruned artifact: boundary-frame trim
-        h = h.reshape(bsz, -1)  # (frames, channels) row-major
-        for i, (layer, lmode) in enumerate(zip(qp.denses, dense_modes)):
-            act = "relu" if i < len(qp.denses) - 1 else None
-            if lmode in ("int8", "fxp8"):
-                hq = _quantizer(lmode)(h, axis=act_axis)
-                h = quant_matmul(
-                    hq.q,
-                    layer["w"].q,
-                    hq.scale.reshape(bsz if per_sample_acts else 1, 1),
-                    layer["w"].scale.reshape(1, -1),
-                    layer["b"],
-                    act=act,
-                )
-            else:
-                hin, w = _float_operands(h, layer["w"], lmode)
-                h = torch.matmul(hin, w) + layer["b"]
-                if act == "relu":
-                    h = relu(h)
+    for layer, lmode in zip(qp.convs, conv_modes):
+        if lmode in ("int8", "fxp8"):
+            hq = _quantizer(lmode)(h, axis=act_axis)  # per-request act quant
+            h = conv1d_fused_q(
+                hq.q,
+                layer["w"].q,
+                hq.scale.reshape(-1, 1) if per_sample_acts else hq.scale,
+                layer["w"].scale,
+                layer["b"],
+                act="relu",  # CORDIC ReLU == max(v, 0): fused into the epilogue
+            )
+        else:
+            hin, w = _float_operands(h, layer["w"], lmode)
+            h = relu(_conv1d_float(hin, w) + layer["b"])
+        h = maxpool2(h)
+    if qp.keep_frames is not None:
+        h = h[:, : qp.keep_frames, :]  # pruned artifact: boundary-frame trim
+    h = h.reshape(bsz, -1)  # (frames, channels) row-major
+    for i, (layer, lmode) in enumerate(zip(qp.denses, dense_modes)):
+        act = "relu" if i < len(qp.denses) - 1 else None
+        if lmode in ("int8", "fxp8"):
+            hq = _quantizer(lmode)(h, axis=act_axis)
+            h = quant_matmul(
+                hq.q,
+                layer["w"].q,
+                hq.scale.reshape(bsz if per_sample_acts else 1, 1),
+                layer["w"].scale.reshape(1, -1),
+                layer["b"],
+                act=act,
+            )
+        else:
+            hin, w = _float_operands(h, layer["w"], lmode)
+            h = project_rows(hin, w) + layer["b"]
+            if act == "relu":
+                h = relu(h)
     return cordic_softmax(h)
 
 
@@ -197,9 +202,67 @@ def accelerator_forward(
     return forward_quantized(qp, x.to(qp.device), per_sample_acts, raw_windows)
 
 
-def accelerator_forward_sharded(*args, **kwargs):
-    """Sharded-batch dispatch over several GPUs is ROADMAP M8."""
-    raise NotImplementedError("sharded-batch dispatch is ROADMAP M8")
+def accelerator_forward_sharded(
+    params: dict | QuantizedParams | tuple[QuantizedParams, ...],
+    x,
+    cfg: CNNConfig,
+    *,
+    mesh,
+    axis_name: str = STREAM_AXIS,
+    fxp: bool = False,
+    raw_windows: bool = False,
+    feature_kind: str | None = None,
+) -> torch.Tensor:
+    """Sharded-batch twin of :func:`accelerator_forward`: the rows are split
+    into ``k`` contiguous chunks along ``mesh``'s ``axis_name`` axis, each
+    entry of the mesh runs the whole datapath on its chunk with its own
+    replica of the artifact, and the results are gathered, in order, onto
+    the first entry's device.
+
+    Activations are quantised with per-sample scales and every float layer
+    sums each row in one fixed order, so a row's result depends on nothing
+    outside the row: the output is bitwise the unsharded forward's, for
+    every artifact cell.  Per-tensor activation scales are not offered here:
+    a shard-local amax would differ from the global one.  With
+    ``raw_windows`` each shard runs the baked front-end on its own rows.
+
+    ``params`` is a baked artifact (replicated here), the replicas
+    :func:`~repro_torch.serving.quantized_params.replicate_params` gave for
+    this mesh (what the engine passes, so that no call copies weights), or
+    an fp32 checkpoint baked on the fly on the first entry's device.  On one
+    card the shards run one after another on the current stream.
+    ``x.shape[0]`` must divide evenly by the shard count.
+    """
+    n_shards = mesh.shape[axis_name]
+    x = torch.as_tensor(x)
+    if x.shape[0] % n_shards != 0:
+        raise ValueError(
+            f"batch {x.shape[0]} not divisible by {n_shards} shards on "
+            f"mesh axis {axis_name!r}"
+        )
+    if isinstance(params, tuple):
+        replicas = params
+        if len(replicas) != n_shards:
+            raise ValueError(f"{len(replicas)} replicas for a mesh of {n_shards} entries")
+    else:
+        qp = params
+        if not isinstance(qp, QuantizedParams):
+            qp = quantize_params(
+                params, cfg, mode="fxp8" if fxp else "int8", feature_kind=feature_kind,
+                device=mesh.devices[0],
+            )
+        replicas = replicate_params(qp, mesh)
+    if raw_windows:
+        _check_raw_windows(replicas[0], x, feature_kind)
+    elif x.ndim != 2:
+        raise ValueError(f"(B, M) feature rows expected, got {tuple(x.shape)}")
+    rows = x.shape[0] // n_shards
+    out = [
+        forward_quantized(qp, x[i * rows : (i + 1) * rows].to(qp.device), True, raw_windows)
+        for i, qp in enumerate(replicas)
+    ]
+    home = mesh.devices[0]
+    return torch.cat([o.to(home) for o in out])
 
 
 def precompile_slot_shapes(
@@ -208,6 +271,8 @@ def precompile_slot_shapes(
     slot_counts,
     *,
     row_width: int | None = None,
+    mesh=None,
+    axis_name: str | None = None,
     raw_windows: bool = False,
 ) -> None:
     """Warm the datapath once per batch (slot) shape of the ladder: the
@@ -215,8 +280,10 @@ def precompile_slot_shapes(
     call pays its allocator and launch set-up outside a serving round.
     Zeros are the engine's silence padding, so there is no NaN hazard.
     Rows are ``N_SAMPLES`` raw samples wide with ``raw_windows``, else
-    ``cfg.input_len`` features."""
-    if not isinstance(qp, QuantizedParams):
+    ``cfg.input_len`` features.  With a ``mesh`` every shape goes through
+    the sharded forward (``qp`` may then be the mesh's replicas)."""
+    baked = qp if isinstance(qp, tuple) and mesh is not None else (qp,)
+    if not all(isinstance(q, QuantizedParams) for q in baked):
         raise TypeError(
             f"precompile_slot_shapes needs a baked QuantizedParams artifact, "
             f"got {type(qp).__name__}"
@@ -224,8 +291,15 @@ def precompile_slot_shapes(
     if row_width is None:
         row_width = N_SAMPLES if raw_windows else cfg.input_len
     for slots in sorted(set(int(s) for s in slot_counts)):
-        x = torch.zeros((slots, row_width), dtype=torch.float32, device=qp.device)
-        accelerator_forward(qp, x, cfg, device=qp.device, raw_windows=raw_windows).cpu()
+        x = torch.zeros((slots, row_width), dtype=torch.float32, device=baked[0].device)
+        if mesh is not None:
+            out = accelerator_forward_sharded(
+                qp, x, cfg, mesh=mesh, axis_name=STREAM_AXIS if axis_name is None else axis_name,
+                raw_windows=raw_windows,
+            )
+        else:
+            out = accelerator_forward(qp, x, cfg, device=qp.device, raw_windows=raw_windows)
+        out.cpu()
 
 
 __all__ = [

@@ -26,11 +26,17 @@ baked front-end runs ahead of the first layer, so no host feature work
 sits in a round.  Its features agree with the host front-end within
 ``features_torch.PARITY_ATOL``; streaming == batched stays bitwise.
 
+``shards=k`` (or a ``mesh``) splits every slot block over the ``k``
+entries of a 1-D :class:`~repro_torch.distributed.sharding.StreamMesh`,
+one artifact replica an entry
+(:func:`~repro_torch.serving.accelerator.accelerator_forward_sharded`); the
+scores are bitwise the unsharded engine's.  ``shards=k`` alone takes the
+first ``k`` devices of the engine's kind (``k`` CPU entries on the CPU);
+several shards on one card need a mesh with that card repeated.
+
 ``snapshot()`` holds numpy only, with the reference's keys, dtypes and
 Python scalar types, so ``snapshot_bytes()`` gives the reference engine's
-bytes for the same state (:mod:`repro_torch.serving.durability`).  Left
-for a later slice, raising ``NotImplementedError``: sharded dispatch
-(``shards``/``mesh``, ROADMAP M8).
+bytes for the same state (:mod:`repro_torch.serving.durability`).
 """
 from __future__ import annotations
 
@@ -40,9 +46,14 @@ import numpy as np
 import torch
 
 from repro_torch.data import features
+from repro_torch.distributed.sharding import stream_mesh
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.cnn1d import CNNConfig
-from repro_torch.serving.accelerator import accelerator_forward, precompile_slot_shapes
+from repro_torch.serving.accelerator import (
+    accelerator_forward,
+    accelerator_forward_sharded,
+    precompile_slot_shapes,
+)
 from repro_torch.serving.batching import (
     AdmissionPolicy,
     BlockPool,
@@ -50,7 +61,11 @@ from repro_torch.serving.batching import (
     SlotPolicy,
     fair_allocation,
 )
-from repro_torch.serving.quantized_params import QuantizedParams, quantize_params
+from repro_torch.serving.quantized_params import (
+    QuantizedParams,
+    quantize_params,
+    replicate_params,
+)
 from repro_torch.serving.tracker import TrackEvent, VectorTemporalTracker
 
 
@@ -274,8 +289,6 @@ class MonitorEngine:
         exit_threshold: float = 0.35,
         min_duration: int = 2,
     ):
-        if shards is not None or mesh is not None:
-            raise NotImplementedError("sharded dispatch (shards/mesh) is ROADMAP M8")
         if feature_kind not in features.FEATURE_DIMS:
             raise ValueError(f"unknown feature kind {feature_kind!r}")
         if cfg.input_len != features.FEATURE_DIMS[feature_kind]:
@@ -321,6 +334,34 @@ class MonitorEngine:
                 feature_kind=feature_kind if on_device_features else None,
                 device=self.device,
             )
+        # Sharded-batch dispatch: split each slot block along a 1-D mesh
+        # ("streams" axis), one artifact replica an entry.  shards=None keeps
+        # the single-device path; shards=k (k=1 included) routes every
+        # forward through accelerator_forward_sharded.
+        if mesh is None and shards is not None:
+            mesh = stream_mesh(shards, device=self.device.type)
+        self._mesh = mesh
+        self._mesh_axis = None
+        self._replicas = None
+        if mesh is not None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(
+                    f"MonitorEngine needs a 1-D mesh (one batch-sharding "
+                    f"axis), got axes {mesh.axis_names}"
+                )
+            if shards is not None and mesh.size != shards:
+                raise ValueError(
+                    f"mesh has {mesh.size} device(s) but shards={shards}; pass "
+                    f"one or make them agree"
+                )
+            self._mesh_axis = mesh.axis_names[0]
+            n_shards = mesh.shape[self._mesh_axis]
+            if batch_slots % n_shards != 0:
+                raise ValueError(
+                    f"batch_slots {batch_slots} must divide evenly over {n_shards} shards"
+                )
+            self._replicas = replicate_params(self._qp, mesh)
+        self.shards = 1 if mesh is None else mesh.shape[self._mesh_axis]
         self._rings = [
             StreamRing(self.window, self.hop, capacity_windows) for _ in range(n_streams)
         ]
@@ -331,7 +372,9 @@ class MonitorEngine:
             exit_threshold=exit_threshold,
             min_duration=min_duration,
         )
-        self.slot_policy = SlotPolicy(batch_slots, adaptive=adaptive_slots, min_slots=min_slots)
+        self.slot_policy = SlotPolicy(
+            batch_slots, adaptive=adaptive_slots, min_slots=min_slots, multiple=self.shards
+        )
         self.adaptive_slots = self.slot_policy.adaptive
         self._pool = BlockPool(self._in_width, inflight)
         self._core = DispatchCore(
@@ -454,6 +497,11 @@ class MonitorEngine:
     def _submit(self, block: np.ndarray) -> torch.Tensor:
         """Dispatch one slot block; returns the (possibly in-flight) result."""
         x = torch.from_numpy(block).to(self.device)
+        if self._mesh is not None:
+            return accelerator_forward_sharded(
+                self._replicas, x, self.cfg, mesh=self._mesh, axis_name=self._mesh_axis,
+                raw_windows=self.on_device_features,
+            )
         return accelerator_forward(
             self._qp, x, self.cfg, device=self.device, raw_windows=self.on_device_features
         )
@@ -467,8 +515,9 @@ class MonitorEngine:
     def precompile(self) -> tuple[int, ...]:
         """Warm the datapath once per dispatchable slot shape; returns the ladder."""
         precompile_slot_shapes(
-            self._qp, self.cfg, self.slot_policy.ladder, row_width=self._in_width,
-            raw_windows=self.on_device_features,
+            self._qp if self._mesh is None else self._replicas, self.cfg,
+            self.slot_policy.ladder, row_width=self._in_width, mesh=self._mesh,
+            axis_name=self._mesh_axis, raw_windows=self.on_device_features,
         )
         return self.slot_policy.ladder
 

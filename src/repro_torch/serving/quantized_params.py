@@ -204,6 +204,24 @@ def quantize_params(
     )
 
 
+def replicate_params(qp: QuantizedParams, mesh) -> tuple[QuantizedParams, ...]:
+    """One artifact per entry of ``mesh`` (a
+    :class:`~repro_torch.distributed.sharding.StreamMesh`), in mesh order.
+
+    Sharded-batch dispatch keeps the weights on every device and splits
+    only the activation rows.  An entry on the artifact's own device gets
+    the artifact itself, so nothing is copied and K2's packed weights
+    (cached by tensor identity) are shared; an entry on another device gets
+    one ``.to(device)`` copy, shared by every entry on that device.
+    Placing the artifact once, at engine construction, keeps weight copies
+    out of every call."""
+    copies = {qp.device: qp}
+    for dev in mesh.devices:
+        if dev not in copies:
+            copies[dev] = qp.to(dev)
+    return tuple(copies[dev] for dev in mesh.devices)
+
+
 # ---------------------------------------------------------------------------
 # Artifact (de)serialisation: the reference's .npz format
 # ---------------------------------------------------------------------------

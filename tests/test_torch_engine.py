@@ -256,8 +256,18 @@ def test_ring_sanitize_and_validation(detector):
         eng.push(2, bad)
     with pytest.raises(ValueError, match="feature dim"):
         MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="mfcc20", device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        MonitorEngine(tparams, tcfg, n_streams=1, feature_kind="zcr", device="cpu", shards=2)
+    # sharded dispatch (ROADMAP M8) is ported: shards=2 serves what the
+    # unsharded engine serves, bitwise
+    scenes = np.random.default_rng(8).standard_normal((2, 2 * features.N_SAMPLES))
+    scored = []
+    for shards in (None, 2):
+        sharded = MonitorEngine(tparams, tcfg, n_streams=2, feature_kind="zcr", device="cpu",
+                                batch_slots=2, shards=shards)
+        assert sharded.shards == (shards or 1)
+        for s in range(2):
+            sharded.push(s, scenes[s].astype(np.float32))
+        scored.append([dataclasses.astuple(w) for w in sharded.drain()])
+    assert len(scored[0]) == 4 and scored[0] == scored[1]
     # the snapshot's byte codec round-trips the engine's state exactly
     eng.push(1, np.ones(3 * features.N_SAMPLES // 2, np.float32))
     blob = eng.snapshot_bytes()

@@ -2,13 +2,19 @@
 
 The golden artifacts replay bitwise, ``detector_pruned_mixed`` included,
 and ``detector_int8_ondevice`` through the raw-window forward (the port's
-zcr front-end gives the reference's bits).
-Forwards from the same fp32 params match the reference bitwise in the
-int8, fxp8 and pruned+mixed cells: at these widths PyTorch's CPU conv and
-matmul sum the bf16/fp32 layers in the reference's order (the card's
-cuDNN/cuBLAS need not, which is why ``chip_smoke.py`` holds the mixed cell
-within a tolerance there).  Every row's result is independent of its
-co-batch.
+zcr front-end gives the reference's bits).  Forwards from the same fp32
+params match the reference bitwise in the int8 and fxp8 cells.
+
+The bf16/fp32 layers do not sum in the reference's order.  The port sums
+each of them in one fixed order, ascending ``k`` (``project_rows``), on
+both devices and at every batch size, so a row's bits never depend on its
+co-batch and the card gives the CPU's bits; XLA's ``einsum`` and conv on
+the CPU add in an order of their own, which changes with the batch size.
+The mixed cells therefore agree with the reference within
+:data:`MIXED_PROB_ATOL` on the probabilities, with the same decisions; at
+the small widths below the CORDIC softmax's Q15.16 input absorbs the
+difference and the probabilities are bitwise the reference's.  Every
+row's result, logits included, is independent of its co-batch.
 """
 from pathlib import Path
 
@@ -29,6 +35,7 @@ from repro.serving.accelerator import accelerator_forward as j_forward  # noqa: 
 from repro_torch.core.precision_policy import PrecisionPolicy  # noqa: E402
 from repro_torch.core.pruning import plan_prune  # noqa: E402
 from repro_torch.data.features_torch import feature_rows  # noqa: E402
+from repro_torch.distributed.sharding import STREAM_AXIS, stream_mesh  # noqa: E402
 from repro_torch.models import cnn1d as tcnn  # noqa: E402
 from repro_torch.serving import accelerator as tacc  # noqa: E402
 from repro_torch.serving.quantized_params import load_artifact, quantize_params  # noqa: E402
@@ -38,6 +45,11 @@ torch.set_num_threads(1)
 GOLDEN = Path(__file__).resolve().parents[1] / "artifacts" / "golden"
 SMALL = dict(input_len=FEATURE_DIMS["zcr"], channels=(4, 8), hidden=8)
 MIXED = "conv0/w=bf16,dense1/w=fp32"
+#: the largest |dp| of a mixed cell against the reference, stated from a
+#: measurement: the canonical pruned_mixed cell over 25 seeds x 1-8 rows of
+#: loudness-spread inputs differed by at most 5.5e-6 (and in 11 of 200
+#: forwards at all), so 5e-5 leaves a tenfold margin
+MIXED_PROB_ATOL = 5e-5
 
 
 def _bits_equal(a, b) -> bool:
@@ -173,10 +185,73 @@ def test_raw_window_contract_errors():
 
 
 def test_unported_paths_raise():
+    """Sharded dispatch (ROADMAP M8) is ported: it gives the unsharded bits
+    and takes the reference's arguments; a row vector is still refused."""
     _, _, tcfg, tart = _bake_both("int8")
     x = _inputs(rows=2)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tacc.accelerator_forward_sharded(tart, x, tcfg)
+    mesh = stream_mesh(2, device="cpu")
+    want = tacc.accelerator_forward(tart, x, tcfg, device="cpu").numpy()
+    got = tacc.accelerator_forward_sharded(tart, x, tcfg, mesh=mesh, axis_name=STREAM_AXIS)
+    assert _bits_equal(want, got.numpy())
     with pytest.raises(ValueError, match="feature rows"):
         tacc.accelerator_forward(tart, x[0], tcfg, device="cpu")
     tacc.precompile_slot_shapes(tart, tcfg, (1, 2, 4))
+    tacc.precompile_slot_shapes(tart, tcfg, (2, 4), mesh=mesh)
+
+
+def _canonical_mixed(seed):
+    """JAX's and the port's artifact of the deployed cell at the canonical
+    widths: pruned to keep=64 with a trimmed frame, ``MIXED`` policy."""
+    jcfg, tcfg = jcnn.CNNConfig(), tcnn.CNNConfig()
+    np_params = jax.tree.map(np.asarray, jcnn.init_params(jax.random.PRNGKey(seed), jcfg))
+    jp = jax.tree.map(jnp.asarray, np_params)
+    tp = tcnn.params_from_numpy(np_params)
+    jart = jqp.quantize_params(
+        jp, jcfg, mode="int8", policy=JPolicy.parse(MIXED, default="int8"),
+        prune=j_plan(jp["conv2"]["w"], jcfg.n_frames, keep=64, trim_frames=1))
+    tart = quantize_params(
+        tp, tcfg, mode="int8", device="cpu", policy=PrecisionPolicy.parse(MIXED, default="int8"),
+        prune=plan_prune(tp["conv2"]["w"], tcfg.n_frames, keep=64, trim_frames=1))
+    return jcfg, jart, tcfg, tart
+
+
+@pytest.mark.parametrize("seed", [0, 16])
+def test_mixed_cell_within_tolerance_of_reference_at_canonical_widths(seed):
+    """The deployed pruned_mixed cell at the canonical widths (flatten
+    8,704), 1-8 rows: probabilities within ``MIXED_PROB_ATOL`` of the
+    reference's and the same decisions."""
+    jcfg, jart, tcfg, tart = _canonical_mixed(seed)
+    assert tart.layer_modes == (("bf16", "int8", "int8"), ("int8", "fp32"))
+    for rows in range(1, 9):
+        x = _inputs(rows=rows, width=tcfg.input_len, seed=10 * seed + rows)
+        want = np.asarray(j_forward(jart, jnp.asarray(x), jcfg, interpret=True))
+        got = tacc.accelerator_forward(tart, x, tcfg, device="cpu").numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=MIXED_PROB_ATOL)
+        np.testing.assert_array_equal(got.argmax(axis=1), want.argmax(axis=1))
+
+
+@pytest.mark.parametrize("policy", ["dense0/w=fp32", "dense0/w=bf16"])
+def test_float_dense_rows_independent_of_co_batch_at_canonical_width(monkeypatch, policy):
+    """A float dense layer at the canonical K = 35,072: each row's logits
+    (the softmax's input, whose Q15.16 rounding would hide an ulp) are
+    bitwise the same at batch sizes 1, 3 and 8, under a permutation and
+    beside silence padding."""
+    cfg = tcnn.CNNConfig()
+    params = tcnn.init_params(cfg, torch.Generator().manual_seed(11))
+    qp = quantize_params(params, cfg, mode="int8", device="cpu",
+                         policy=PrecisionPolicy.parse(policy, default="int8"))
+    assert qp.layer_modes[1][0] == policy[-4:] and qp.denses[0]["w"].shape[0] == 35072
+    monkeypatch.setattr(tacc, "cordic_softmax", lambda h: h)  # logits out
+
+    def logits(x):
+        return tacc.accelerator_forward(qp, x, cfg, device="cpu").numpy()
+
+    x = _inputs(rows=8, width=cfg.input_len, seed=5)
+    full = logits(x)
+    perm = np.random.default_rng(0).permutation(8)
+    assert _bits_equal(full[perm], logits(x[perm]))
+    assert _bits_equal(full[3:6], logits(x[3:6]))
+    for i in (0, 7):
+        assert _bits_equal(full[i : i + 1], logits(x[i : i + 1]))
+    padded = np.concatenate([x[:3], np.zeros((5, x.shape[1]), np.float32)])
+    assert _bits_equal(full[:3], logits(padded)[:3])

@@ -317,7 +317,7 @@ def test_cordic_activation_every_angle_bitwise(mode):
     assert _bits_equal(want, got.numpy())
 
 
-@pytest.mark.parametrize("cols", [1, 2, 3, 5, 17, 32, 33, 100, 1100])
+@pytest.mark.parametrize("cols", [1, 2, 3, 5, 17, 32, 33, 100, 1025, 1100, 4096])
 def test_cordic_softmax_bitwise(cols):
     rng = np.random.default_rng(cols)
     x = (rng.standard_normal((24, cols)) * 10.0 ** rng.uniform(-1, 2, (24, 1))).astype(np.float32)

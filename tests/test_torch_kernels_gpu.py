@@ -3,8 +3,10 @@
 per-tensor and per-sample scales and clip, and K1's split-K workspace left
 clean),
 K3b in all seven modes (on every angle the unit can see, at ragged sizes
-and on views at odd offsets), the front-end's fixed-order primitives, and
-the row independence of the on-device front-end.
+and on views at odd offsets), the front-end's fixed-order primitives (the
+projection also at the float layers' shapes), the row independence of the
+on-device front-end and of a float dense layer at the canonical width, and
+the sharded forward over entries of one card.
 
 Marked ``gpu``: every test skips without a CUDA device (the kernels have no
 CPU mode).  The file imports neither JAX nor ``repro``, so it runs on a GPU
@@ -154,9 +156,10 @@ def test_conv1d_edges_on_card(card, cin, l):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cols", [1, 2, 5, 31, 32, 33, 40, 100])
+@pytest.mark.parametrize("cols", [1, 2, 5, 31, 32, 33, 40, 100, 1024, 1025, 2048, 4096])
 def test_cordic_softmax_kernel_vs_plain_on_card(card, cols):
-    """Both sides of the kernel's register path (cols <= 32) and its row loop."""
+    """Both sides of the kernel's register path (cols <= 32) and its block
+    per wider row (several levels of windows beyond 1,024 columns)."""
     rng = np.random.default_rng(cols)
     x = torch.from_numpy((rng.standard_normal((37, cols)) * 20).astype(np.float32)).to(card)
     got = tcordic.cordic_softmax(x)
@@ -180,10 +183,10 @@ def test_cordic_activation_kernel_vs_plain_on_card(card, mode):
 
 @pytest.mark.gpu
 def test_cordic_softmax_refuses_wide_rows_on_card(card):
-    """Kernel K3 sums one level of the reference's windows of 32: rows up to
-    1024 values; wider rows raise rather than fall back."""
+    """Kernel K3 holds a row's first-level window sums in shared memory:
+    rows up to 32,768 values; wider rows raise rather than fall back."""
     x = torch.zeros((2, tcordic.K3_MAX_COLS + 1), device=card)
-    with pytest.raises(ValueError, match="up to 1024"):
+    with pytest.raises(ValueError, match="up to 32768"):
         tcordic.cordic_softmax(x)
     got = tcordic.cordic_softmax(x[:, :-1])
     torch.cuda.synchronize()
@@ -240,3 +243,61 @@ def test_feature_rows_independent_of_co_batch_on_card(card, kind):
         assert _bits_equal(full[:size], features_torch.feature_rows(x[:size], kind))
     padded = torch.cat([x[:3], torch.zeros((5, N_SAMPLES), device=card)])
     assert _bits_equal(full[:3], features_torch.feature_rows(padded, kind)[:3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,k,n", [(8, 35072, 64), (8, 8704, 64), (8, 64, 2), (8768, 3, 64)])
+def test_project_rows_at_float_layer_shapes_on_card(card, r, k, n):
+    """The float layers' sums: dense0 at full and pruned width, dense1, and
+    conv0's im2col rows."""
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(card)
+    m = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(card)
+    before = frontend.project_rows.launches
+    got = frontend.project_rows(x, m)
+    torch.cuda.synchronize()
+    assert frontend.project_rows.launches == before + 1
+    assert _bits_equal(got, frontend.project_rows_plain(x, m))
+
+
+def _canonical_artifact(policy, device):
+    from repro_torch.core.precision_policy import PrecisionPolicy
+    from repro_torch.models import cnn1d
+    from repro_torch.serving.quantized_params import quantize_params
+
+    cfg = cnn1d.CNNConfig()
+    params = cnn1d.init_params(cfg, torch.Generator().manual_seed(11))
+    return cfg, quantize_params(params, cfg, mode="int8", device=device,
+                                policy=PrecisionPolicy.parse(policy, default="int8"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["dense0/w=fp32", "dense0/w=bf16"])
+def test_float_dense_rows_independent_of_co_batch_and_equal_cpu_on_card(card, policy):
+    from repro_torch.serving import accelerator as tacc
+
+    cfg, qp = _canonical_artifact(policy, card)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal((8, cfg.input_len))
+                          * 10.0 ** rng.uniform(-2, 2, (8, 1))).astype(np.float32)).to(card)
+    full = tacc.accelerator_forward(qp, x, cfg, device=card)
+    for size in (1, 3):
+        assert _bits_equal(full[:size], tacc.accelerator_forward(qp, x[:size], cfg, device=card))
+    perm = torch.from_numpy(rng.permutation(8)).to(card)
+    assert _bits_equal(full[perm], tacc.accelerator_forward(qp, x[perm], cfg, device=card))
+    cpu = tacc.accelerator_forward(qp.to("cpu"), x.cpu(), cfg, device="cpu")
+    assert _bits_equal(full.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_forward_over_one_card_equals_unsharded(card, k):
+    from repro_torch.distributed.sharding import StreamMesh
+    from repro_torch.serving import accelerator as tacc
+
+    cfg, qp = _canonical_artifact("conv0/w=bf16,dense1/w=fp32", card)
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((8, cfg.input_len)).astype(np.float32)).to(card)
+    want = tacc.accelerator_forward(qp, x, cfg, device=card)
+    got = tacc.accelerator_forward_sharded(qp, x, cfg, mesh=StreamMesh((card,) * k))
+    assert _bits_equal(want, got)

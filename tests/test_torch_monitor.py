@@ -6,8 +6,9 @@ seeded random weights, and a baked artifact with the front-end on the
 device, where its scores and events equal the reference ``MonitorEngine``
 fed the same delivery schedule; every fleet flag serves through the
 port's ``FleetSupervisor`` with the events of the plain run (a rerun on the
-same ``--state-dir`` resumes, and ends with the same events); the flags of
-unported layers exit naming their ROADMAP item.
+same ``--state-dir`` resumes, and ends with the same events); ``--shards``
+serves the plain run's scores and events, alone and with the fleet; the
+flags of unported layers exit naming their ROADMAP item.
 """
 import dataclasses
 from pathlib import Path
@@ -80,13 +81,10 @@ def test_main_on_device_artifact_matches_reference_engine(capsys):
     assert len(run.scores) == 3 * 5
 
 
-@pytest.mark.parametrize("extra,road", [
-    (["--shards", "2"], "M8"), ([], "M9"), (["--trained"], "M9"),
-])
+@pytest.mark.parametrize("extra,road", [([], "M9"), (["--trained"], "M9")])
 def test_unported_layers_exit_naming_their_roadmap_item(extra, road):
-    argv = extra if road == "M9" else ["--random", *extra]
     with pytest.raises(SystemExit, match=road):
-        monitor.main([*argv, "--device", "cpu"])
+        monitor.main([*extra, "--device", "cpu"])
 
 
 def test_artifact_flag_errors(capsys):
@@ -142,3 +140,22 @@ def test_fleet_flags_serve_with_the_plain_runs_events(plain_run, tmp_path, capsy
         again = monitor.main(argv)
         assert "resumed from state dir" in capsys.readouterr().out
         assert again.events == events
+
+
+@pytest.mark.parametrize("extra", [["--shards", "1"], ["--shards", "4", "--slots", "8"],
+                                   ["--shards", "2", "--workers", "2"]])
+def test_shards_flag_serves_with_the_plain_runs_events(plain_run, capsys, extra):
+    """``--shards k`` (ROADMAP M8) on the CPU: k CPU entries, every slot
+    block split over them, the plain run's scores and events; with the
+    fleet flags every worker's engine shards its blocks."""
+    run = monitor.main([*PLAIN, *extra])
+    out = capsys.readouterr().out
+    k = int(extra[1])
+    assert f"sharded dispatch over {k} device(s)" in out
+    engines = [w.engine for w in run.engine.workers] if "--workers" in extra else [run.engine]
+    assert all(e.shards == k for e in engines)
+    scores, events = plain_run
+    assert sorted(dataclasses.astuple(w) for w in run.scores) == sorted(scores)
+    assert run.events == events
+    with pytest.raises(SystemExit, match="divide evenly"):
+        monitor.main([*PLAIN, "--shards", "3"])

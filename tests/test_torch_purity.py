@@ -70,6 +70,7 @@ def no_card():
 
 
 def test_entry_points_raise_without_gpu_by_default(no_card, tmp_path):
+    from repro_torch.distributed.sharding import stream_mesh
     from repro_torch.models import cnn1d
     from repro_torch.serving.accelerator import accelerator_forward
     from repro_torch.serving.engine import MonitorEngine
@@ -89,6 +90,7 @@ def test_entry_points_raise_without_gpu_by_default(no_card, tmp_path):
         lambda: quantize_params(params, cfg),
         lambda: QuantizedParamsCache(params, cfg),
         lambda: MonitorEngine(params, cfg, n_streams=1, feature_kind="zcr"),
+        lambda: stream_mesh(2),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
