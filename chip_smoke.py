@@ -88,7 +88,25 @@ failure (no phase catches its own failure and carries on):
 Then K2 is timed at every tile and stage count it takes and K1 at other
 splits of K, each held to the chosen tiling's int32 accumulators and
 outputs (no tiling may change them), and every serving call of both again
-with the card held busy before each call (the ``tile_sweep`` lines).  With ``--parent DIR``, K1's
+with the card held busy before each call (the ``tile_sweep`` lines).
+
+8. detector training and analysis (``training_phase``): the reference's
+   corpus (2,400 windows, host numpy) and mfcc20 features; the canonical
+   detector trained on the card with ``train_detector`` (14 epochs, batch
+   64, patience 5; ms a step and s an epoch from CUDA events, one step's
+   device time from CUPTI, loss per epoch) and cached where
+   ``get_detector`` finds it; params and optimizer state on the card,
+   finite loss, and two seeded 20-step runs bitwise equal;
+   ``calibrate_alphas`` on 256 rows; test accuracy under FP32, BF16, INT8,
+   FXP8, the sensitivity policy and ``prune_model(keep=64)``, the FP32
+   accuracy inside the JAX reference's band (``REFERENCE_CORRECT``) and
+   the 8-bit drops beside the reference's; the card's FP32 emulation
+   logits within ``EMULATION_RTOL`` of the CPU's (the TF32 guard); the
+   int8, fxp8 and pruned + sensitivity-policy artifacts serving the 300
+   test windows through K1-K3 (launches counted) with ``deviation_report``,
+   the int8 artifact's card probabilities bitwise the CPU's; and the
+   driver's quick-train default path and ``--trained`` (2 streams x 4 s).
+   The ``training`` line holds the numbers.  With ``--parent DIR``, K1's
 and K2's device time at every serving layer is
 then taken for DIR's kernels and this tree's in fresh processes, in the
 order parent, change, change, parent (the ``kernel_compare`` line).
@@ -1828,6 +1846,264 @@ def sharded_phase(torch, np, dev, gpu_line, runs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: detector training and analysis
+# ---------------------------------------------------------------------------
+
+#: test-split correct decisions (of 300) of the JAX reference's canonical
+#: mfcc20 detector, ``train_detector`` seeds 0, 1 and 2 with the cached
+#: detector's settings, calibrated as ``get_detector`` does; JAX on the
+#: CPU, from ``scripts/jax_reference_band.py``
+REFERENCE_CORRECT = {
+    "fp32": (281, 277, 284), "bf16": (281, 277, 284), "int8": (285, 276, 286),
+    "fxp8": (285, 276, 284), "sensitivity": (285, 278, 285),
+    "pruned_fp32": (253, 286, 236), "pruned_int8": (268, 287, 242),
+}
+N_TEST = 300
+#: the port's FP32 test accuracy must lie within 2 points of the
+#: reference's seeds
+FP32_BAND = (min(REFERENCE_CORRECT["fp32"]) / N_TEST - 0.02,
+             max(REFERENCE_CORRECT["fp32"]) / N_TEST + 0.02)
+#: card vs CPU emulation logits under FP32, relative to the largest
+#: |logit|: float32 sums in another order stay near 1e-6, TF32 products
+#: (10-bit mantissas) would land near 1e-3
+EMULATION_RTOL = 1e-4
+DETERMINISM_STEPS = 20
+
+
+def training_phase(torch, np, dev, gpu_line) -> dict[str, int]:
+    """Train the canonical detector on the card with the reference's corpus
+    and settings, check it (device, finite loss, bitwise-deterministic
+    seeded steps, card vs CPU emulation, FP32 accuracy in the JAX
+    reference's band), score its emulation modes, bake and serve its
+    int8, fxp8 and pruned + sensitivity-policy artifacts through K1-K3
+    (card == CPU bitwise for int8), and drive the driver's quick-train and
+    ``--trained`` paths.  Returns the launches of the serving steps."""
+    import contextlib
+    import io
+
+    from repro_torch.core.precision_policy import Precision, PrecisionPolicy
+    from repro_torch.data import features
+    from repro_torch.kernels.conv1d_fused import conv1d_fused_q
+    from repro_torch.kernels.cordic_act import cordic_softmax
+    from repro_torch.kernels.frontend import project_rows
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.launch import monitor
+    from repro_torch.models import cnn1d
+    from repro_torch.serving.accelerator import accelerator_forward, deviation_report
+    from repro_torch.serving.quantized_params import quantize_params
+    from repro_torch.training import detector_artifact as tdet
+    from repro_torch.training import loop
+    from repro_torch.training.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ds = tdet.dataset_cached()
+    feats = tdet.features_cached(ds, "mfcc20")
+    corpus_s = time.perf_counter() - t0
+    n_tr, n_va = tdet.SPLIT
+    labels = ds.labels
+    test_x, test_y = feats[n_tr + n_va:], labels[n_tr + n_va:]
+    check(len(test_y) == N_TEST, f"test split holds {len(test_y)} windows, want {N_TEST}")
+    cfg = cnn1d.CNNConfig(input_len=features.FEATURE_DIMS["mfcc20"])
+    check(cfg.flatten_size == 35_072, f"flatten {cfg.flatten_size} != 35072")
+
+    def events():
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        return a
+
+    # 1. train on the card (the reference's settings), timed with CUDA events
+    torch.cuda.synchronize()
+    start = events()
+    res = loop.train_detector(feats[:n_tr], labels[:n_tr], feats[n_tr:n_tr + n_va],
+                              labels[n_tr:n_tr + n_va], cfg, epochs=14, batch=64, patience=5,
+                              seed=0, device=dev)
+    end = events()
+    torch.cuda.synchronize()
+    train_s = start.elapsed_time(end) / 1e3
+    epochs_run = len(res.history)
+    steps = epochs_run * (n_tr // 64)
+    losses = [h["loss"] for h in res.history]
+    check(all(t.device.type == "cuda" for leaves in res.params.values() for t in leaves.values()),
+          "trained params are not on the card")
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    save_checkpoint(tdet.model_dir("mfcc20"), 1, res.params)
+
+    # 2. seeded steps twice: the same bits, params and optimizer state
+    x_train = torch.as_tensor(feats[:n_tr], device=dev)
+    y_train = torch.as_tensor(labels[:n_tr], device=dev)
+
+    def seeded_steps(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = cnn1d.init_params(cfg, gen)
+        state = loop.OPT.init(params)
+        order = np.random.default_rng(seed).permutation(n_tr)
+        torch.cuda.synchronize()
+        a = events()
+        for i in range(DETERMINISM_STEPS):
+            idx = torch.as_tensor(order[i * 64:(i + 1) * 64], device=dev)
+            params, state, _ = loop.train_step(params, state, x_train[idx], y_train[idx], gen, cfg)
+        b = events()
+        torch.cuda.synchronize()
+        return params, state, a.elapsed_time(b) / DETERMINISM_STEPS
+
+    (p1, s1, _), (p2, s2, step_ms) = seeded_steps(3), seeded_steps(3)
+    leaves = [(p1[k][n], p2[k][n]) for k in p1 for n in p1[k]]
+    leaves += [(t1[k][n], t2[k][n]) for t1, t2 in ((s1.mu, s2.mu), (s1.nu, s2.nu))
+               for k in t1 for n in t1[k]]
+    check(all(a.device.type == "cuda" for a, _ in leaves) and s1.step.device.type == "cuda",
+          "params or optimizer state left the card")
+    check(int(s1.step) == DETERMINISM_STEPS == int(s2.step), "optimizer step count")
+    check(all(torch.equal(a, b) for a, b in leaves),
+          f"two seeded runs of {DETERMINISM_STEPS} steps gave different weights")
+    # one step's device work (CUPTI) and device ops beside its stream time
+    box = [p2, s2]
+    step_gen = torch.Generator(device=dev).manual_seed(5)
+
+    def one_step():
+        box[0], box[1], _ = loop.train_step(box[0], box[1], x_train[:64], y_train[:64],
+                                            step_gen, cfg)
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    ops = device_ops(torch, one_step, iters=10)
+    check(bool(ops), "the CUPTI trace of ten training steps holds no device activity")
+    step_device_ms = sum(e.time_range.elapsed_us() for e in ops) / 10 / 1e3
+
+    # 3. the cached detector (what --trained serves): restore, calibrate, score
+    torch.cuda.synchronize()
+    det = tdet.get_detector("mfcc20", device=dev)
+    params = det["params"]
+    check(all(torch.equal(params[k]["w"], res.params[k]["w"]) for k in params),
+          "get_detector did not restore the trained checkpoint")
+    calib_x = torch.as_tensor(feats[:256], device=dev)
+    a = events()
+    cnn1d.calibrate_alphas(res.params, calib_x, cfg)
+    b = events()
+    torch.cuda.synchronize()
+    calibrate_ms = a.elapsed_time(b)
+    alphas = {k: float(v["alpha"]) for k, v in params.items() if "alpha" in v}
+
+    acc = {}
+    logits_card = {}
+    for prec in Precision:
+        logits_card[prec.value] = loop.predict(params, test_x, cfg, PrecisionPolicy.uniform(prec))
+        acc[prec.value] = loop.evaluate_logits(logits_card[prec.value], test_y).accuracy
+    check(acc["fp32"] == det["metrics"].accuracy, "get_detector's metrics differ from predict")
+    policy = tdet.sensitivity_policy(det)
+    acc["sensitivity"] = loop.evaluate_logits(loop.predict(params, test_x, cfg, policy),
+                                              test_y).accuracy
+    pruned, pcfg, spec = cnn1d.prune_model(params, cfg, keep=64)
+    check(spec.flatten_after == 8704, f"pruned flatten {spec.flatten_after}")
+    for prec in (Precision.FP32, Precision.INT8):
+        with torch.no_grad(), cnn1d.fp32_numerics():
+            lg = cnn1d.forward_pruned(pruned, torch.as_tensor(test_x, device=dev), pcfg, spec,
+                                      policy=PrecisionPolicy.uniform(prec)).cpu().numpy()
+        acc[f"pruned_{prec.value}"] = loop.evaluate_logits(lg, test_y).accuracy
+    lo, hi = FP32_BAND
+    print(f"training accuracy fp32={acc['fp32']:.4f} band=[{lo:.4f}, {hi:.4f}] "
+          f"(JAX reference seeds 0-2 on the CPU)")
+    check(lo <= acc["fp32"] <= hi,
+          f"FP32 test accuracy {acc['fp32']:.4f} outside the reference band [{lo:.4f}, {hi:.4f}]")
+
+    # 4. the card's emulation against the CPU's, same params (the TF32 guard)
+    cpu_params = cnn1d.params_to(params, "cpu")
+    emu = {}
+    for mode in ("fp32", "int8"):
+        cpu = loop.predict(cpu_params, test_x, cfg, PrecisionPolicy.uniform(Precision(mode)))
+        card = logits_card[mode]
+        emu[mode] = {"max_abs": float(np.abs(card - cpu).max()),
+                     "scale": float(np.abs(cpu).max()),
+                     "decision_agreement": float(np.mean(card.argmax(1) == cpu.argmax(1)))}
+    rel = emu["fp32"]["max_abs"] / max(emu["fp32"]["scale"], 1.0)
+    check(rel <= EMULATION_RTOL,
+          f"card vs CPU FP32 emulation logits differ by {rel:.3g} of the largest logit "
+          f"(> {EMULATION_RTOL}): TF32?")
+
+    # 5. bake and serve the test split through K1-K3 (counts from here)
+    kernels = (quant_matmul, conv1d_fused_q, cordic_softmax, project_rows)
+    cells = {
+        "int8": lambda d, p: cnn1d.export_quantized(p, cfg, mode="int8", device=d),
+        "fxp8": lambda d, p: cnn1d.export_quantized(p, cfg, mode="fxp8", device=d),
+        "pruned_sensitivity": lambda d, p: quantize_params(p, cfg, mode="int8", prune=spec,
+                                                           policy=policy, device=d),
+    }
+    artifacts = {name: bake(dev, params) for name, bake in cells.items()}
+    test_dev = torch.as_tensor(test_x, device=dev)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    probs = {name: accelerator_forward(qp, test_dev, cfg, device=dev).cpu().numpy()
+             for name, qp in artifacts.items()}
+    dev_report = deviation_report(params, test_dev, cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    want = {k.__name__: 0 for k in kernels}
+    for qp in (*artifacts.values(), artifacts["int8"]):  # deviation_report bakes int8 once more
+        for name, n in launches_per_forward(qp, raw=False).items():
+            if name in want:
+                want[name] += n
+    print(f"training_launches counts={counts} expected={want}")
+    check(counts == want, f"training: kernel launches {counts} != {want}")
+    deployed = {}
+    for name, p in probs.items():
+        check(np.isfinite(p).all() and p.shape == (N_TEST, 2), f"{name}: bad probabilities")
+        deployed[name] = loop.evaluate_logits(p, test_y).accuracy
+    cpu_int8 = accelerator_forward(cells["int8"]("cpu", cpu_params), test_x, cfg, device="cpu")
+    check(np.array_equal(probs["int8"], cpu_int8.numpy()),
+          "int8 artifact: card probabilities differ from the CPU run")
+    launches = dict(counts)
+
+    # 6. the driver: its quick-train default path and --trained (the cache of step 1)
+    def drive(extra):
+        for k in kernels:
+            k.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            run = monitor.main([*extra, "--streams", "2", "--seconds", "4"])
+        torch.cuda.synchronize()
+        for k in kernels:
+            launches[k.__name__] += k.launches
+        lines = log.getvalue().splitlines()
+        scored = [ln for ln in lines if ln.startswith("  stream ")]
+        summary = [ln.strip() for ln in lines if "windows/s" in ln or "quick-trained" in ln]
+        print(f"driver[{' '.join(extra) or 'default'}] {len(scored)} scored windows; "
+              + "; ".join(summary))
+        check(len(scored) == len(run.scores) == 2 * 5 and run.engine.windows_scored == 10,
+              f"driver {extra}: {len(scored)} scored windows printed, want 10")
+        check(all(np.isfinite(w.p_uav) for w in run.scores), f"driver {extra}: non-finite scores")
+        return run
+
+    quick = drive([])
+    check(quick.engine.artifact.device.type == "cuda", "quick-trained artifact is not on the card")
+    trained = drive(["--trained"])
+    check(int(trained.engine.artifact.denses[0]["w"].q.shape[0]) == 35_072,
+          "--trained did not serve the canonical detector")
+
+    ref = {k: [c / N_TEST for c in v] for k, v in REFERENCE_CORRECT.items()}
+    print("training " + json.dumps({
+        "config": "CNNConfig() mfcc20, flatten 35072", "dataset": tdet.DATASET,
+        "split": list(tdet.SPLIT), "corpus_s": corpus_s, "train_s": train_s,
+        "epochs_run": epochs_run, "steps": steps, "s_per_epoch": train_s / epochs_run,
+        "ms_per_step": step_ms, "step_device_ms": step_device_ms,
+        "step_device_ops": len(ops) / 10, "loss_per_epoch": losses,
+        "val_acc_per_epoch": [h["val_acc"] for h in res.history],
+        "best_val_acc": res.best_val_acc, "calibrate_ms": calibrate_ms, "alphas": alphas,
+        "test_accuracy": acc, "fp32_band": list(FP32_BAND),
+        "drop_pp": {m: (acc["fp32"] - acc[m]) * 100 for m in ("bf16", "int8", "fxp8")},
+        "reference_accuracy": ref,
+        "reference_drop_pp": {m: [(f - q) * 100 for f, q in zip(ref["fp32"], ref[m])]
+                              for m in ("bf16", "int8", "fxp8")},
+        "sensitivity_rules": policy.to_dict(), "emulation_card_vs_cpu": emu,
+        "deployed_accuracy": deployed, "deviation_report": dev_report,
+        "determinism_steps": DETERMINISM_STEPS, "phase_s": time.perf_counter() - t_phase,
+        "gpu": gpu_line,
+    }))
+    return launches
+
+
 #: K1's and K2's layers at 8 slots: (kernel, shape) as _qmm_case / _conv_case take them
 COMPARE_LAYERS = {
     "dense0": ("quant_matmul", (8, 35072, 64)), "dense0_pruned": ("quant_matmul", (8, 8704, 64)),
@@ -2040,6 +2316,7 @@ def main(argv: list[str] | None = None) -> int:
         add(fleet_phase(torch, np, dev, gpu_line, *runs["int8"]))
         add(sharded_phase(torch, np, dev, gpu_line, runs))
         sweep_phase(torch, dev, gpu_line)
+        add(training_phase(torch, np, dev, gpu_line))
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)
         for name in kernels:

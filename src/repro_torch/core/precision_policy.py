@@ -2,8 +2,10 @@
 
 Counterpart of ``PrecisionPolicy`` in ``repro/core/precision_policy.py``: a
 mapping from parameter paths (glob patterns) to ``Precision`` modes with a
-default, serialisable to JSON so it rides along in configs and artifacts.
-``from_sensitivity`` and ``policy_einsum`` belong to later slices.
+default, serialisable to JSON so it rides along in configs and artifacts;
+``from_sensitivity`` builds one from layer-sensitivity scores, and
+``fake_quant_params`` applies one to a params tree on the emulation path.
+``policy_einsum`` serves the LM stack and belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import json
 import os
 from typing import Mapping
 
-from repro_torch.core.quantization import Precision
+import torch
+
+from repro_torch.core.quantization import Precision, quantize_tensor
 
 
 @dataclasses.dataclass
@@ -84,5 +88,28 @@ class PrecisionPolicy:
             rules[pat.strip()] = Precision(mode.strip())
         return PrecisionPolicy(rules=rules, default=default)
 
+    @staticmethod
+    def from_sensitivity(scores: Mapping[str, float], **kw) -> "PrecisionPolicy":
+        from repro_torch.core.sensitivity import assign_precisions
 
-__all__ = ["Precision", "PrecisionPolicy"]
+        return PrecisionPolicy(rules=dict(assign_precisions(scores, **kw)))
+
+
+def fake_quant_params(params, policy: PrecisionPolicy, prefix: str = ""):
+    """Emulation path: fake-quantise every weight tensor per the policy.
+
+    Biases and other tensors of fewer than two dimensions ride at fp32
+    (they live in the extended-precision accumulator in hardware).
+    """
+
+    def walk(tree, path):
+        if isinstance(tree, Mapping):
+            return type(tree)({k: walk(v, f"{path}/{k}" if path else k) for k, v in tree.items()})
+        if torch.as_tensor(tree).ndim < 2:
+            return tree
+        return quantize_tensor(tree, policy.precision_for(path))
+
+    return walk(params, prefix)
+
+
+__all__ = ["Precision", "PrecisionPolicy", "fake_quant_params"]

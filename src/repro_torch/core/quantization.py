@@ -1,12 +1,14 @@
-"""Deployment quantisers of the W8A8 datapath (SHIELD8-UAV §III-B).
+"""Precision-aware quantisation (SHIELD8-UAV §III-B).
 
 Counterpart of ``repro/core/quantization.py``: the numeric modes
-(``Precision``) and the two deployment quantisers that produce real int8
-payloads plus scales (``int8_symmetric``, ``fxp8_quantize``).  The
-emulation quantisers (PwQ, PACT) belong to the training slice and are not
-ported yet.
+(``Precision``), the two deployment quantisers that produce real int8
+payloads plus scales (``int8_symmetric``, ``fxp8_quantize``), and the
+emulation quantisers that return fake-quantised fp32 tensors and drive the
+accuracy tables: PwQ for weights (paper eqs. 4-6), PACT for activations
+(eqs. 7-8) with its straight-through gradient (``pact_ste``), and
+``quantize_tensor``/``activation_quantize`` over the four modes.
 
-Bitwise parity with the reference rests on three details:
+Bitwise parity with the reference rests on these details:
 
 * every division is by a tensor on the operand's device: PyTorch's CUDA
   division by a host scalar multiplies by its reciprocal instead;
@@ -115,5 +117,154 @@ def fxp8_quantize(w: torch.Tensor, axis: Optional[int] = None, *,
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
-    """BF16 mode: true round-trip through bfloat16, back in float32."""
+    """BF16 mode: true round-trip through bfloat16, back in float32.  Its
+    gradient is rounded through bfloat16 too, as ``jax.grad``'s is."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# PwQ weight quantisation (paper eqs. 4-6)
+# ---------------------------------------------------------------------------
+
+
+def _abs(w: torch.Tensor) -> torch.Tensor:
+    """``|w|`` with ``jnp.abs``'s gradient, ``+1`` at 0."""
+    return torch.where(w >= 0, w, -w)
+
+
+def _clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip``: ties split the gradient between value and bound."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` of all of ``x`` (float32 out): the sum rounded once to
+    float32, times the float32 reciprocal of the count."""
+    total = x.sum(dtype=torch.float64).to(torch.float32)
+    return total * _const(float(np.float32(1.0) / np.float32(x.numel())), x)
+
+
+def pwq_scale(w: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Paper eq. (4):  scale(k) = mean(|W|) * (2^n - 1) / 2^(n-1)."""
+    n = n_bits
+    return _mean(_abs(w)) * _const(2.0**n - 1.0, w) / _const(2.0 ** (n - 1), w)
+
+
+def _nonzero_scale(w: torch.Tensor, n_bits: int) -> torch.Tensor:
+    k = pwq_scale(w, n_bits)
+    return torch.where(k == 0, torch.ones_like(k), k)
+
+
+def default_clip_bounds(w: torch.Tensor, n_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Initial (W_l, W_h) clipping bounds for PwQ: the range of the weights
+    normalised by eq. (4)'s scale (the domain of eq. 5).  The paper learns
+    the bounds; these are what they start from."""
+    wn = torch.div(w, _nonzero_scale(w, n_bits))
+    return wn.amin(), wn.amax()
+
+
+def pwq_quantize(
+    w: torch.Tensor,
+    n_bits: int,
+    w_l: Optional[torch.Tensor] = None,
+    w_h: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """PwQ fake-quantise ``w`` to ``n_bits`` (paper eqs. 4-6), fp32 out.
+
+    eq. (5):  Ŵ = round((clip(W/k, W_l, W_h) - W_l) * (2^n-1)/(W_h-W_l))
+    eq. (6):  Q(W) = Ŵ * (W_h-W_l)/(2^n-1) + W_l        (then re-scaled by k)
+    """
+    w = w.to(torch.float32)
+    k = _nonzero_scale(w, n_bits)
+    if w_l is None or w_h is None:
+        d_l, d_h = default_clip_bounds(w, n_bits)
+        w_l = d_l if w_l is None else w_l
+        w_h = d_h if w_h is None else w_h
+    span = torch.clamp_min(w_h - w_l, 1e-12)
+    levels = _const(2.0**n_bits - 1.0, w)
+    w_hat = torch.round(torch.div((_clip(torch.div(w, k), w_l, w_h) - w_l) * levels, span))
+    q = torch.div(w_hat * span, levels) + w_l
+    return q * k
+
+
+def pwq_error(w: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """||Q^PwQ(w) - w||_2, the building block of the sensitivity score."""
+    return torch.linalg.vector_norm(pwq_quantize(w, n_bits) - w)
+
+
+# ---------------------------------------------------------------------------
+# PACT activation quantisation (paper eqs. 7-8)
+# ---------------------------------------------------------------------------
+
+
+def pact(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Paper eq. (7):  y = 0.5 (|x| - |x - α| + α)  ==  clip(x, 0, α)."""
+    return 0.5 * (torch.abs(x) - torch.abs(x - alpha) + alpha)
+
+
+def pact_quantize(x: torch.Tensor, alpha: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Paper eq. (8): quantise the PACT-clipped activation to n_bits (fp32 out)."""
+    y = pact(x, alpha)
+    levels = _const(2.0**n_bits - 1.0, x)
+    a = torch.clamp_min(alpha, 1e-12)
+    return torch.div(torch.round(torch.div(y * levels, a)) * a, levels)
+
+
+class PactSTE(torch.autograd.Function):
+    """``pact_quantize`` with the reference's custom gradient: straight
+    through for x in [0, α]; PACT's dα = sum(g where x >= α)."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, n_bits):
+        ctx.save_for_backward(x, alpha)
+        return pact_quantize(x, alpha, n_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, alpha = ctx.saved_tensors
+        zero = torch.zeros_like(g)
+        dx = torch.where((x >= 0) & (x <= alpha), g, zero)
+        dalpha = torch.where(x >= alpha, g, zero).sum().reshape(alpha.shape)
+        return dx, dalpha, None
+
+
+def pact_ste(x: torch.Tensor, alpha: torch.Tensor, n_bits: int) -> torch.Tensor:
+    return PactSTE.apply(x, alpha, n_bits)
+
+
+# ---------------------------------------------------------------------------
+# The four modes (emulation path)
+# ---------------------------------------------------------------------------
+
+
+def quantize_tensor(w: torch.Tensor, precision: Precision, axis: Optional[int] = None) -> torch.Tensor:
+    """Fake-quantise ``w`` under ``precision`` (fp32 in, fp32 out): the
+    emulation path that scores accuracy (Table II).  INT8 uses PwQ (the
+    paper's weight quantiser), FXP8 the power-of-two-scale variant, whose
+    output carries no gradient (its payload is an integer and its scale a
+    ``ceil``), as in the reference."""
+    if precision == Precision.FP32:
+        return w.to(torch.float32)
+    if precision == Precision.BF16:
+        return bf16_round(w)
+    if precision == Precision.INT8:
+        return pwq_quantize(w, 8)
+    if precision == Precision.FXP8:
+        return fxp8_quantize(w.detach(), axis=axis).dequantize()
+    raise ValueError(f"unknown precision {precision}")
+
+
+def activation_quantize(x: torch.Tensor, precision: Precision,
+                        alpha: torch.Tensor | float = 6.0) -> torch.Tensor:
+    """Quantise activations under ``precision`` (PACT for the 8-bit modes)."""
+    if precision == Precision.FP32:
+        return x
+    if precision == Precision.BF16:
+        return bf16_round(x)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    return pact_ste(x, alpha, 8)
+
+
+def quantization_mse(w: torch.Tensor, precision: Precision) -> float:
+    """Mean-squared emulation error of a tensor under a precision mode."""
+    return float(torch.mean((quantize_tensor(w, precision) - w) ** 2))

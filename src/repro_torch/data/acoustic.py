@@ -1,10 +1,10 @@
 """Synthetic UAV / non-UAV acoustic windows (SHIELD8-UAV §IV-A, simulated).
 
-The port's own copy of the window synthesisers of ``repro/data/acoustic.py``:
-:func:`synth_uav`, :func:`synth_background` and :func:`add_noise_snr` draw
-from the generator in the reference's order, so one seed gives the same
-audio in both packages.  The dataset functions (``make_dataset``,
-``make_snr_sweep``) come with detector training (ROADMAP M9).
+The port's own copy of ``repro/data/acoustic.py``: :func:`synth_uav`,
+:func:`synth_background`, :func:`add_noise_snr` and the corpus builders
+:func:`make_dataset` and :func:`make_snr_sweep` draw from the generator in
+the reference's order, so one seed gives the same arrays in both packages,
+bit for bit.
 
 * **UAV**: rotor blade-pass-frequency (BPF) harmonic stacks.  A quadrotor's
   acoustic signature is the sum over four motors of harmonics of
@@ -18,6 +18,8 @@ audio in both packages.  The dataset functions (``make_dataset``,
 Augmentation follows the paper: additive Gaussian noise at a target SNR.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -133,3 +135,50 @@ def add_noise_snr(x: np.ndarray, snr_db: float, rng: np.random.Generator) -> np.
     p_sig = np.mean(x**2)
     p_noise = p_sig / (10.0 ** (snr_db / 10.0))
     return x + rng.standard_normal(len(x)).astype(np.float32) * np.sqrt(p_noise)
+
+
+@dataclasses.dataclass
+class AcousticDataset:
+    audio: np.ndarray  # (N, n_samples) float32
+    labels: np.ndarray  # (N,) int32, 1 = UAV
+    snr_db: np.ndarray  # (N,) float32 (inf = clean)
+
+
+def make_dataset(
+    n: int,
+    seed: int = 0,
+    snr_range: tuple[float, float] = (-5.0, 30.0),
+    p_clean: float = 0.25,
+) -> AcousticDataset:
+    """``n`` labelled windows, half UAV on average; all but a ``p_clean``
+    share noised at an SNR drawn from ``snr_range``."""
+    rng = np.random.default_rng(seed)
+    audio = np.empty((n, N_SAMPLES), np.float32)
+    labels = np.empty(n, np.int32)
+    snrs = np.full(n, np.inf, np.float32)
+    for i in range(n):
+        label = int(rng.random() < 0.5)
+        x = synth_uav(rng) if label else synth_background(rng)
+        if rng.random() > p_clean:
+            snr = rng.uniform(*snr_range)
+            x = add_noise_snr(x, snr, rng)
+            snrs[i] = snr
+        audio[i] = x
+        labels[i] = label
+    return AcousticDataset(audio=audio, labels=labels, snr_db=snrs)
+
+
+def make_snr_sweep(n_per_snr: int, snrs_db: list[float], seed: int = 1):
+    """Matched clean-signal sets re-noised at each SNR (Figs. 4-5 harness):
+    {snr: (noisy windows, labels)}."""
+    rng = np.random.default_rng(seed)
+    clean = np.empty((n_per_snr, N_SAMPLES), np.float32)
+    labels = np.empty(n_per_snr, np.int32)
+    for i in range(n_per_snr):
+        labels[i] = int(rng.random() < 0.5)
+        clean[i] = synth_uav(rng) if labels[i] else synth_background(rng)
+    out = {}
+    for snr in snrs_db:
+        noisy = np.stack([add_noise_snr(c, snr, rng) for c in clean])
+        out[snr] = (noisy, labels)
+    return out

@@ -1,5 +1,5 @@
 """Multi-stream continuous-monitoring driver of the port —
-``python -m repro_torch.launch.monitor --streams 4 --duration 30 --artifact PATH.npz``.
+``python -m repro_torch.launch.monitor --streams 4 --duration 30``.
 
 Counterpart of ``repro/launch/monitor.py``.  Simulates N always-on
 microphones: each stream is a synthetic acoustic scene (background clutter
@@ -11,18 +11,19 @@ vectorised tracker's per-stream detection events are printed against the
 known ground-truth pass.  Scenes, chunk schedule, printed lines and the
 final summary are the reference driver's, draw for draw.
 
-Two things differ from the reference driver:
-
-* **No in-process training.**  The reference trains a small detector
-  (``quick_detector``) or loads its cached canonical one (``--trained``);
-  both need the detector trainer, ROADMAP M9.  Here ``--artifact PATH.npz``
-  serves a baked artifact written by either package (``save_artifact``),
-  and ``--random`` serves seeded random weights (``torch.Generator``, so
-  not the reference's values).  Without either the driver exits naming
-  M9.  ``--prune``/``--policy`` are baking decisions: with ``--artifact``
-  they are an error, as in ``MonitorEngine``.
-* **``--device {cuda,cpu}``**, CUDA by default: PyTorch needs the device
-  named, where JAX picks it itself.  Without a GPU, ``cuda`` fails.
+The weights come from where the reference's do.  By default a small psd
+detector (``SMALL_CFG``) is trained in process on the synthetic corpus
+(:func:`quick_detector`, the reference's settings); ``--trained`` serves
+the cached canonical detector of
+:func:`repro_torch.training.detector_artifact.get_detector` (mfcc20
+unless ``--feature`` says otherwise), trained and cached on first use,
+and wins over ``--random`` as there; ``--random`` serves seeded random
+weights (``torch.Generator``, so not the reference's values).  The port adds ``--artifact PATH.npz``, a baked
+artifact written by either package (``save_artifact``); ``--prune`` and
+``--policy`` are baking decisions, an error with it, as in
+``MonitorEngine``.  And ``--device {cuda,cpu}``, CUDA by default: PyTorch
+needs the device named, where JAX picks it itself.  Without a GPU,
+``cuda`` fails before any training.
 
 The fleet flags serve through the port's
 :class:`~repro_torch.serving.supervisor.FleetSupervisor` as the
@@ -59,6 +60,23 @@ from repro_torch.serving.supervisor import FleetSupervisor
 from repro_torch.serving.tracker import TrackEvent
 
 SMALL_CFG = dict(channels=(4, 8), hidden=8)
+
+
+def quick_detector(kind: str, cfg: cnn1d.CNNConfig, *, n: int = 240, seed: int = 0,
+                   device="cuda") -> dict:
+    """Train a small detector in process on the synthetic corpus (the
+    reference's settings), on ``device``."""
+    from repro_torch.training import loop
+
+    ds = acoustic.make_dataset(n, seed=seed, snr_range=(0.0, 20.0))
+    feats = features.batch_features(ds.audio, kind)
+    n_tr = int(0.8 * n)
+    res = loop.train_detector(
+        feats[:n_tr], ds.labels[:n_tr], feats[n_tr:], ds.labels[n_tr:],
+        cfg, epochs=12, batch=32, patience=12, device=device,
+    )
+    print(f"monitor: quick-trained {kind} detector, val_acc={res.best_val_acc:.2f}")
+    return res.params
 
 
 def synth_scene(seconds: float, rng: np.random.Generator):
@@ -151,7 +169,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="shard each micro-batch over this many devices "
                          "(sharded-batch dispatch; bitwise-identical results)")
     ap.add_argument("--feature", default=None, choices=sorted(features.FEATURE_DIMS),
-                    help="feature set (default: the artifact's baked kind, else psd)")
+                    help="feature set (default: the artifact's baked kind, mfcc20 "
+                         "with --trained, else psd)")
     ap.add_argument("--device-features", action="store_true",
                     help="run the DSP front-end on the device (the engine "
                          "submits raw windows; no host feature extraction on "
@@ -200,7 +219,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--artifact", default=None, metavar="PATH.npz",
                     help="serve a baked artifact (save_artifact of either package)")
     ap.add_argument("--trained", action="store_true",
-                    help="the reference's trained detector (needs the trainer, ROADMAP M9)")
+                    help="the cached canonical detector (trained and cached under "
+                         "artifacts/detector_torch/ on first use)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap
 
@@ -215,6 +235,8 @@ def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine | FleetSup
         if args.prune is not None or args.policy is not None:
             ap.error("--prune/--policy are baking decisions and cannot be applied "
                      "to a baked --artifact")
+        if args.random or args.trained:
+            ap.error("--artifact serves its own weights; drop --random/--trained")
         params = load_artifact(args.artifact, device=dev)
         if args.feature is None:
             args.feature = params.feature_kind or "psd"
@@ -223,10 +245,21 @@ def _build_engine(args, ap: argparse.ArgumentParser) -> MonitorEngine | FleetSup
               f"({params.mode}, flatten {int(params.denses[0]['w'].shape[0])})")
     else:
         if args.feature is None:
-            args.feature = "psd"
-        cfg = cnn1d.CNNConfig(input_len=features.FEATURE_DIMS[args.feature], **SMALL_CFG)
-        params = cnn1d.init_params(cfg, torch.Generator().manual_seed(args.seed))
-        print("monitor: --random weights; probabilities are meaningless")
+            # --trained serves the cached mfcc20 detector; another feature
+            # trains a canonical model of its own on a cache miss.
+            args.feature = "mfcc20" if args.trained else "psd"
+        if args.trained:
+            from repro_torch.training.detector_artifact import get_detector
+
+            det = get_detector(args.feature, device=dev)
+            params, cfg = det["params"], det["cfg"]
+        else:
+            cfg = cnn1d.CNNConfig(input_len=features.FEATURE_DIMS[args.feature], **SMALL_CFG)
+            if args.random:
+                params = cnn1d.init_params(cfg, torch.Generator().manual_seed(args.seed))
+                print("monitor: --random weights; probabilities are meaningless")
+            else:
+                params = quick_detector(args.feature, cfg, seed=args.seed, device=dev)
         # Deploy-time decisions baked into the served artifact (quantise-once).
         if args.prune is not None:
             from repro_torch.core.pruning import plan_prune
@@ -343,13 +376,6 @@ def _build_fleet(args, params, cfg, dev, prune_spec, policy, admission) -> Fleet
 def main(argv=None) -> MonitorRun:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.trained or (args.artifact is None and not args.random):
-        raise SystemExit(
-            "monitor: the port cannot train or load the reference's trained "
-            "detector yet (detector training is ROADMAP M9); serve a baked "
-            "artifact with --artifact PATH.npz, or seeded weights with --random"
-        )
-
     engine = _build_engine(args, ap)
     fleet = isinstance(engine, FleetSupervisor)
     controller = None

@@ -33,6 +33,9 @@ front-end's ``PARITY_ATOL``, not bitwise.
 :class:`~repro_torch.distributed.sharding.StreamMesh`, one artifact
 replica an entry, and gives the unsharded forward's bits.
 
+:func:`deviation_report` holds the datapath against the fp32 emulation
+forward of the same checkpoint (``repro_torch.models.cnn1d.forward``).
+
 On ``device="cuda"`` (the default) every kernel runs on the card; on
 ``device="cpu"`` the kernels' plain PyTorch versions run.  Without a GPU a
 CUDA request raises.
@@ -302,9 +305,30 @@ def precompile_slot_shapes(
         out.cpu()
 
 
+def deviation_report(
+    params: dict, x, cfg: CNNConfig, *, per_sample_acts: bool = True, device="cuda"
+) -> dict:
+    """Max probability deviation and decision agreement of the kernel
+    datapath (an int8 artifact baked from ``params`` on ``device``) against
+    the fp32 emulation forward's softmax."""
+    from repro_torch.models import cnn1d
+
+    dev = resolve_device(device)
+    x = torch.as_tensor(x).to(dev)
+    with cnn1d.fp32_numerics(), torch.no_grad():
+        ref = torch.softmax(cnn1d.forward(cnn1d.params_to(params, dev), x, cfg), dim=-1)
+    acc = accelerator_forward(params, x, cfg, device=dev, per_sample_acts=per_sample_acts)
+    return {
+        "max_prob_dev": float(torch.max(torch.abs(ref - acc))),
+        "decision_agreement": float(
+            torch.mean((ref.argmax(-1) == acc.argmax(-1)).to(torch.float32))),
+    }
+
+
 __all__ = [
     "accelerator_forward",
     "accelerator_forward_sharded",
+    "deviation_report",
     "forward_quantized",
     "precompile_slot_shapes",
 ]

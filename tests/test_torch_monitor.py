@@ -8,9 +8,11 @@ fed the same delivery schedule; every fleet flag serves through the
 port's ``FleetSupervisor`` with the events of the plain run (a rerun on the
 same ``--state-dir`` resumes, and ends with the same events); ``--shards``
 serves the plain run's scores and events, alone and with the fleet; the
-flags of unported layers exit naming their ROADMAP item.
+default path quick-trains a detector and ``--trained`` serves the cached
+one, both on the card unless ``--device cpu``.
 """
 import dataclasses
+import functools
 from pathlib import Path
 
 import pytest
@@ -27,6 +29,7 @@ from repro_torch.data import features  # noqa: E402
 from repro_torch.launch import monitor  # noqa: E402
 from repro_torch.serving.faults import Fault, FaultPlan  # noqa: E402
 from repro_torch.serving.supervisor import FleetSupervisor  # noqa: E402
+from repro_torch.training import detector_artifact as tdet  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -81,10 +84,59 @@ def test_main_on_device_artifact_matches_reference_engine(capsys):
     assert len(run.scores) == 3 * 5
 
 
-@pytest.mark.parametrize("extra,road", [([], "M9"), (["--trained"], "M9")])
-def test_unported_layers_exit_naming_their_roadmap_item(extra, road):
-    with pytest.raises(SystemExit, match=road):
-        monitor.main([*extra, "--device", "cpu"])
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+@pytest.mark.parametrize("extra", [[], ["--trained"]])
+def test_training_paths_raise_without_gpu_unless_cpu(no_card, monkeypatch, extra):
+    """The default quick-train path and ``--trained`` ask for the card
+    first: without one they exit before any training or corpus work."""
+    def never(*a, **k):
+        raise AssertionError("trained without a device")
+
+    monkeypatch.setattr(monitor, "quick_detector", never)
+    monkeypatch.setattr(tdet, "get_detector", never)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        monitor.main([*extra, "--seconds", "2", "--streams", "2"])
+
+
+def test_main_quick_trains_a_detector_by_default(capsys, monkeypatch):
+    """Neither --artifact nor --random: a psd detector (SMALL_CFG) is
+    trained in process, at a tiny corpus here, and serves; the seeded
+    training is deterministic, so a rerun serves the same scores."""
+    monkeypatch.setattr(monitor, "quick_detector", functools.partial(monitor.quick_detector, n=40))
+    argv = ["--device", "cpu", "--seconds", "2", "--streams", "2"]
+    run = monitor.main(argv)
+    out = capsys.readouterr().out
+    assert "monitor: quick-trained psd detector, val_acc=" in out
+    assert "--random" not in out and run.engine.windows_scored == 2 * 2 == len(run.scores)
+    assert run.engine.artifact.convs[0]["w"].q.shape == (3, 1, 4)  # SMALL_CFG, int8
+    again = monitor.main(argv)
+    assert [dataclasses.astuple(w) for w in again.scores] == \
+        [dataclasses.astuple(w) for w in run.scores]
+
+
+def test_main_trained_serves_the_cached_detector(tmp_path, capsys, monkeypatch):
+    """``--trained`` serves ``get_detector(feature)``: the first run trains
+    the canonical widths on a tiny corpus and caches it, the second
+    restores the cache and serves the same scores."""
+    monkeypatch.setattr(tdet, "ARTIFACTS", tmp_path)
+    monkeypatch.setattr(tdet, "DATASET", dict(n=96, seed=7, snr_range=(-12.0, 18.0), p_clean=0.08))
+    monkeypatch.setattr(tdet, "SPLIT", (72, 12))
+    argv = ["--trained", "--feature", "zcr", "--device", "cpu", "--seconds", "2",
+            "--streams", "2"]
+    first = monitor.main(argv)
+    assert (tmp_path / "model_zcr" / "step_0000000001" / "MANIFEST.json").exists()
+    assert first.engine.artifact.convs[2]["w"].q.shape == (3, 128, 256)  # canonical widths
+    second = monitor.main(argv)
+    assert len(first.scores) == 2 * 2
+    assert [dataclasses.astuple(w) for w in second.scores] == \
+        [dataclasses.astuple(w) for w in first.scores]
+    with pytest.raises(SystemExit):
+        monitor.main(["--trained", "--artifact", ONDEVICE, "--device", "cpu"])
 
 
 def test_artifact_flag_errors(capsys):
