@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --parent DIR   # also time K1 and K2 against a
-                                         # checkout of the parent commit
+    python3 chip_smoke.py --parent DIR   # also time K1, K2, project_rows
+                                         # and row_sum against a checkout
+                                         # of the parent commit
 
 Needs one CUDA device and ``nvcc``; it never imports JAX or the ``repro``
 package.  Phases, each of which ends the run with a non-zero exit on
@@ -32,9 +33,15 @@ failure (no phase catches its own failure and carries on):
    K3b in all seven modes at the reference sweep's 4096 x 128, on every
    Q15.16 angle the mode can feed the CORDIC, at ragged sizes, on views
    at 1- and 3-float offsets and at the unit's edge values; the
-   front-end's fixed-order projection and row sum; and the projection at
-   the float layers' shapes (8 x 35,072 x 64, 8 x 8,704 x 64, 8 x 64 x 2
-   and conv0's im2col rows 8,768 x 3 x 64), each timed beside its bound;
+   front-end's fixed-order projection (at the mfcc20 block's shapes and at
+   ragged ones, K 1-2,047 on both sides of a chunk, N 1-33, R 1 and 7, each
+   with the chosen tile and every other) and row sum (at the block's
+   shapes and at each of its three kernels' edges, up to 32,768 values),
+   each shape one device op, timed beside its bound and ``torch.matmul`` /
+   ``torch.sum``; the projection at the float layers' shapes (8 x 35,072 x
+   64, 8 x 8,704 x 64, 8 x 64 x 2 and conv0's im2col rows 8,768 x 3 x 64),
+   twice the same bits, one device op, timed beside its bound, and every
+   tile at those shapes and the block's (the ``project_tile_sweep`` lines);
    then the float layers at full width (policies ``dense0/w=fp32`` and
    ``dense0/w=bf16``): a row's logits and probabilities bitwise the same
    at batch sizes 1, 3 and 8, under a permutation and beside silence
@@ -107,7 +114,8 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    the int8 artifact's card probabilities bitwise the CPU's; and the
    driver's quick-train default path and ``--trained`` (2 streams x 4 s).
    The ``training`` line holds the numbers.  With ``--parent DIR``, K1's
-and K2's device time at every serving layer is
+and K2's device time at every serving layer, and ``project_rows``'s and
+``row_sum``'s at the mfcc20 block's and the float layers' shapes, is
 then taken for DIR's kernels and this tree's in fresh processes, in the
 order parent, change, change, parent (the ``kernel_compare`` line).
 
@@ -816,10 +824,35 @@ def cordic_phase(torch, np, dev, gpu_line, sass):
     return err
 
 
+#: one 8-window mfcc20 block: the mel and DCT projections (R, K, N) and
+#: every row sum (R, n) of the on-device front-end
+MFCC20_PROJECTIONS = ((408, 513, 64), (408, 64, 20))
+MFCC20_ROW_SUMS = ((4104, 12), (512, 51), (80, 51), (8, 128), (8, 128), (8, 128), (8, 1096),
+                   (8, 1096))
+#: project_rows at ragged shapes: K on both sides of a chunk (one and two
+#: chunks of the split), N around the 16-byte vectors and the tiles, R of 1
+#: and 7 rows
+PROJECT_RAGGED = tuple((r, k, n) for r in (1, 7) for k in (1, 13, 1025, 2047)
+                       for n in (1, 2, 20, 33)) + ((5, 1, 7), (3, 700, 33))
+#: row_sum at ragged shapes: each of the three kernels' edges (32 values a
+#: thread, 64 windows a warp, a block a row up to 32,768 values), rows that
+#: start off a 16-byte boundary, and blocks of rows that end mid-block
+ROW_SUM_RAGGED = ((3, 1), (300, 7), (130, 32), (2, 33), (2, 65), (5, 100), (9, 2048),
+                  (3, 2049), (3, 4104), (1, 32 * 1024))
+
+
+def project_cost(r, k, n):
+    """(bytes, fp32 operations) of one ``project_rows`` call."""
+    return 4 * (r * k + k * n + r * n), 2 * r * k * n
+
+
 def frontend_primitive_phase(torch, np, dev, gpu_line):
     """The fixed-order projection and row sum against their plain versions
-    (bitwise) at the mfcc20 front-end's shapes for 8 windows, timed beside
-    ``torch.matmul`` / ``torch.sum``."""
+    (bitwise) at the mfcc20 front-end's shapes for 8 windows and at ragged
+    ones (``project_rows`` with every tile, split and unsplit), each shape
+    timed beside its bound and ``torch.matmul`` / ``torch.sum``, and the
+    block's sums."""
+    from repro_torch.kernels import frontend
     from repro_torch.kernels.frontend import project_rows, project_rows_plain, row_sum, row_sum_plain
 
     rng = np.random.default_rng(SEED + 1)
@@ -827,44 +860,63 @@ def frontend_primitive_phase(torch, np, dev, gpu_line):
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
-    # one 8-window mfcc20 block: the mel and DCT projections, and every row sum
-    proj_cases = [(rand(408, 513).abs(), rand(513, 64).abs()), (rand(408, 64), rand(64, 20))]
-    sum_cases = [rand(*s) for s in ((4104, 12), (512, 51), (80, 51), (8, 128), (8, 128),
-                                    (8, 128), (8, 1096), (8, 1096))]
+    proj_cases = [(rand(r, k).abs(), rand(k, n).abs()) if k == 513 else (rand(r, k), rand(k, n))
+                  for r, k, n in MFCC20_PROJECTIONS]
+    sum_cases = [rand(*s) for s in MFCC20_ROW_SUMS]
     err = 0.0
-    for x, m in proj_cases + [(rand(5, 1), rand(1, 7)), (rand(3, 700), rand(700, 33))]:
-        got = project_rows(x, m)
-        torch.cuda.synchronize()
-        want = project_rows_plain(x, m)
-        err = max(err, max_abs(torch, got, want))
-        check(bitwise(torch, got, want), f"project_rows disagrees at {tuple(x.shape)}x{tuple(m.shape)}")
-    for x in sum_cases + [rand(3, 1), rand(2, 65), rand(5, 100), rand(3, 4104), rand(1, 32 * 1024)]:
+    chosen = frontend.project_tiling
+    try:
+        for x, m in proj_cases + [(rand(r, k), rand(k, n)) for r, k, n in PROJECT_RAGGED]:
+            want = project_rows_plain(x, m)
+            (r, k), n = x.shape, m.shape[1]
+            for tile in [None, *range(len(frontend.PROJECT_TILES))]:
+                frontend.project_tiling = chosen if tile is None else (
+                    lambda *a, t=tile: frontend.tiling_with(t, *a))
+                got = project_rows(x, m)
+                torch.cuda.synchronize()
+                err = max(err, max_abs(torch, got, want))
+                check(bitwise(torch, got, want),
+                      f"project_rows disagrees at {(r, k, n)} with tile {tile} (None: chosen)")
+    finally:
+        frontend.project_tiling = chosen
+    for x in sum_cases + [rand(*s) for s in ROW_SUM_RAGGED]:
         got = row_sum(x)
         torch.cuda.synchronize()
         want = row_sum_plain(x)
         err = max(err, max_abs(torch, got, want))
         check(bitwise(torch, got, want), f"row_sum disagrees at {tuple(x.shape)}")
-    print("kernel_check project_rows, row_sum at the mfcc20 block shapes and ragged ones "
-          "(row_sum at 1-32,768 values, 100, 1,096 and 4,104 among them): bitwise=True")
+    print(f"kernel_check project_rows at the mfcc20 block shapes and {len(PROJECT_RAGGED)} ragged "
+          f"ones (K 1-2,047, N 1-33, R 1 and 7), each with the chosen tile and every tile; "
+          f"row_sum at the block's shapes and {ROW_SUM_RAGGED}: bitwise=True")
 
     def timed(cases, kernel, plain, library, cost):
         ms = plain_ms = lib_ms = 0.0
         bytes_moved = ops = 0
         for args in cases:
-            ms += time_ms(torch, lambda: kernel(*args))
-            plain_ms += time_ms(torch, lambda: plain(*args), iters=10)
-            lib_ms += time_ms(torch, lambda: library(*args))
+            t_k, k_ops = device_time(torch, lambda: kernel(*args))
+            traced = bool(k_ops) and k_ops != ["(CUDA events)"]
+            check(not traced or len(k_ops) == 1,
+                  f"{kernel.__name__} at {[tuple(a.shape) for a in args]} is {len(k_ops)} "
+                  f"device operations a call: {k_ops}")
+            t_p = time_ms(torch, lambda: plain(*args), iters=10)
+            t_l = time_ms(torch, lambda: library(*args))
             b, o = cost(*args)
+            b_ms, b_by = bound_ms(b, o, FP32_OPS_PER_S)
+            print("kernel_time " + json.dumps({
+                "kernel": kernel.__name__, "shape": [list(a.shape) for a in args], "ms": t_k,
+                "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / t_k, "kernel_ops": len(k_ops) if traced else None,
+                "gpu": gpu_line}))
+            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
             bytes_moved, ops = bytes_moved + b, ops + o
         b_ms, b_by = bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
         line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         print("kernel_time " + json.dumps({"kernel": kernel.__name__, "per": "mfcc20 block of 8",
-                                           **line, "gpu": gpu_line}))
+                                           **line, "bound_share": b_ms / ms, "gpu": gpu_line}))
         return line
 
     p_line = timed(proj_cases, project_rows, project_rows_plain, torch.matmul,
-                   lambda x, m: (4 * (x.numel() + m.numel() + x.shape[0] * m.shape[1]),
-                                 2 * x.shape[0] * x.shape[1] * m.shape[1]))
+                   lambda x, m: project_cost(*x.shape, m.shape[1]))
     s_line = timed([(x,) for x in sum_cases], row_sum, row_sum_plain, lambda x: x.sum(dim=1),
                    lambda x: (4 * (x.numel() + x.shape[0]), x.numel()))
     common = dict(route="cuda", source="src/repro_torch/csrc/frontend_rows.cu", replaces=None,
@@ -873,6 +925,41 @@ def frontend_primitive_phase(torch, np, dev, gpu_line):
         "project_rows": dict(name="project_rows", **common, **p_line),
         "row_sum": dict(name="row_sum", **common, **s_line),
     }
+
+
+def project_tile_sweep(torch, rand, gpu_line) -> None:
+    """``project_rows`` at the mfcc20 block's projections and the float
+    layers' shapes with every tile of ``frontend.PROJECT_TILES``: each held
+    bitwise to the chosen tile's output and timed beside it, so that the
+    run shows what ``project_tiling`` chose and what it could have chosen.
+    One ``project_tile_sweep`` line a shape."""
+    from repro_torch.kernels import frontend
+
+    chosen = frontend.project_tiling
+    try:
+        for r, k, n in (*MFCC20_PROJECTIONS, *FLOAT_LAYER_SHAPES.values()):
+            x, m = rand(r, k), rand(k, n)
+            base = chosen(r, k, n)
+            want = frontend.project_rows(x, m)
+            times = {}
+            for tile in range(len(frontend.PROJECT_TILES)):
+                frontend.project_tiling = lambda *a, t=tile: frontend.tiling_with(t, *a)
+                got = frontend.project_rows(x, m)
+                torch.cuda.synchronize()
+                check(bitwise(torch, got, want), f"project_rows at {(r, k, n)}: tile "
+                                                 f"{frontend.PROJECT_TILES[tile]} differs from "
+                                                 f"the chosen tile's output")
+                times[str(frontend.PROJECT_TILES[tile])] = time_ms(
+                    torch, lambda: frontend.project_rows(x, m), iters=30)
+            frontend.project_tiling = chosen
+            best = min(times, key=times.get)
+            print("project_tile_sweep " + json.dumps({
+                "shape": [r, k, n], "chosen": str(frontend.PROJECT_TILES[base.tile]),
+                "blocks": base.blocks, "ms": times, "fastest": best,
+                "chosen_over_fastest": times[str(frontend.PROJECT_TILES[base.tile])] / times[best],
+                "outputs_equal_chosen": True, "gpu": gpu_line}))
+    finally:
+        frontend.project_tiling = chosen
 
 
 #: the float layers' row products (R, K, N) at 8 slots: dense0 of a float
@@ -893,6 +980,7 @@ def float_layer_phase(torch, np, dev, gpu_line):
     numbers."""
     from repro_torch.core.precision_policy import PrecisionPolicy
     from repro_torch.data import features
+    from repro_torch.kernels import frontend
     from repro_torch.kernels.frontend import project_rows, project_rows_plain
     from repro_torch.models import cnn1d
     from repro_torch.serving import accelerator as acc
@@ -910,22 +998,32 @@ def float_layer_phase(torch, np, dev, gpu_line):
         torch.cuda.synchronize()
         want = project_rows_plain(x, m)
         check(bitwise(torch, got, want), f"project_rows disagrees at the float layer {name}")
-        t_k = time_ms(torch, lambda: project_rows(x, m), iters=20)
+        again = project_rows(x, m)
+        torch.cuda.synchronize()
+        check(bitwise(torch, again, got), f"project_rows at the float layer {name} changed its "
+                                          f"bits from one call to the next")
+        t_k, k_ops = device_time(torch, lambda: project_rows(x, m), iters=20)
+        traced = bool(k_ops) and k_ops != ["(CUDA events)"]
+        check(not traced or len(k_ops) == 1,
+              f"project_rows at the float layer {name} is {len(k_ops)} device ops: {k_ops}")
         if k > 1000:
-            # a launch a k: too many device ops for a trace, so CUDA events
-            # around two calls (host gaps included)
+            # a launch a k of a chunk: too many device ops for a trace, so
+            # CUDA events around two calls (host gaps included)
             project_rows_plain(x, m)
             t_p = events_ms(torch, lambda: project_rows_plain(x, m), iters=2)
         else:
             t_p = time_ms(torch, lambda: project_rows_plain(x, m), iters=10)
-        b_ms, b_by = bound_ms(4 * (r * k + k * n + r * n), 2 * r * k * n, FP32_OPS_PER_S)
+        b_ms, b_by = bound_ms(*project_cost(r, k, n), FP32_OPS_PER_S)
         lines[name] = dict(layer=name, shape=[r, k, n], ms=t_k, plain_ms=t_p,
                            library_ms=time_ms(torch, lambda: torch.matmul(x, m)),
                            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t_k,
-                           max_abs_err=max_abs(torch, got, want))
+                           max_abs_err=max_abs(torch, got, want),
+                           tiling=dataclasses.asdict(frontend.project_tiling(r, k, n)),
+                           kernel_ops=len(k_ops) if traced else None, same_bits_twice=True)
         print("kernel_time " + json.dumps({"kernel": "project_rows", **lines[name],
                                            "plain_timing": "CUDA events" if k > 1000 else "CUPTI",
                                            "gpu": gpu_line}))
+    project_tile_sweep(torch, rand, gpu_line)
 
     cfg = cnn1d.CANONICAL
     params = cnn1d.init_params(cfg, torch.Generator().manual_seed(SEED))
@@ -2104,17 +2202,26 @@ def training_phase(torch, np, dev, gpu_line) -> dict[str, int]:
     return launches
 
 
-#: K1's and K2's layers at 8 slots: (kernel, shape) as _qmm_case / _conv_case take them
+#: K1's and K2's layers at 8 slots, (kernel, shape) as _qmm_case / _conv_case
+#: take them, and the front-end primitives' shapes
 COMPARE_LAYERS = {
     "dense0": ("quant_matmul", (8, 35072, 64)), "dense0_pruned": ("quant_matmul", (8, 8704, 64)),
     "dense1": ("quant_matmul", (8, 64, 2)), "conv0": ("conv1d_fused_q", (8, 1096, 1, 64, 3)),
     "conv1": ("conv1d_fused_q", (8, 548, 64, 128, 3)),
     "conv2": ("conv1d_fused_q", (8, 274, 128, 256, 3)),
     "conv2_pruned": ("conv1d_fused_q", (8, 274, 128, 64, 3)),
+    # the front-end's fixed-order primitives: the mfcc20 block's shapes, the
+    # float layers' and the longest row
+    "project_rows:mel": ("project_rows", MFCC20_PROJECTIONS[0]),
+    "project_rows:dct": ("project_rows", MFCC20_PROJECTIONS[1]),
+    **{f"project_rows:{name}": ("project_rows", shape)
+       for name, shape in FLOAT_LAYER_SHAPES.items()},
+    **{f"row_sum:{r}x{n}": ("row_sum", (r, n))
+       for r, n in sorted(set(MFCC20_ROW_SUMS)) + [(1, 32 * 1024)]},
 }
 #: run in a fresh process against one checkout (argv[1]): its own
 #: chip_smoke.py's case makers and timer, its own kernels; prints one
-#: "TIMES {...}" line of CUPTI ms a call per layer
+#: "TIMES {...}" line of CUPTI ms a call per layer or shape
 COMPARE_SNIPPET = r"""
 import json, sys
 root = sys.argv[1]
@@ -2126,11 +2233,18 @@ from repro_torch.kernels.quant_matmul import quant_matmul
 dev = torch.device("cuda")
 gen = torch.Generator().manual_seed(cs.SEED)
 times = {}
+from repro_torch.kernels.frontend import project_rows, row_sum
 for name, (kernel, shape) in json.loads(sys.argv[2]).items():
     if kernel == "quant_matmul":
         fn, (args, kw) = quant_matmul, cs._qmm_case(torch, gen, dev, *shape, act="relu")
-    else:
+    elif kernel == "conv1d_fused_q":
         fn, (args, kw) = conv1d_fused_q, cs._conv_case(torch, gen, dev, *shape)
+    elif kernel == "project_rows":
+        r, k, n = shape
+        fn, args, kw = project_rows, (torch.randn((r, k), generator=gen).to(dev),
+                                      torch.randn((k, n), generator=gen).to(dev)), {}
+    else:
+        fn, args, kw = row_sum, (torch.randn(tuple(shape), generator=gen).to(dev),), {}
     times[name] = cs.device_time(torch, lambda: fn(*args, **kw))[0]
 print("TIMES " + json.dumps(times))
 """
@@ -2205,6 +2319,8 @@ def sweep_phase(torch, dev, gpu_line) -> None:
                                               "gpu": gpu_line}))
         # the same serving calls with the card held busy before each one
         for label, (kernel, shape) in COMPARE_LAYERS.items():
+            if kernel not in ("quant_matmul", "conv1d_fused_q"):
+                continue
             if kernel == "quant_matmul":
                 fn, (args, kw) = tqmm.quant_matmul, _qmm_case(torch, gen, dev, *shape, act="relu")
             else:
@@ -2236,9 +2352,10 @@ def sweep_phase(torch, dev, gpu_line) -> None:
 
 
 def compare_phase(parent: Path, gpu_line: str) -> dict:
-    """K1's and K2's device time a call at every serving layer, for the
-    parent checkout and this one, each in its own process, in the order
-    parent, change, change, parent on this card."""
+    """K1's and K2's device time a call at every serving layer, and
+    ``project_rows``'s and ``row_sum``'s at the mfcc20 block's and the float
+    layers' shapes, for the parent checkout and this one, each in its own
+    process, in the order parent, change, change, parent on this card."""
     runs = []
     for root in (parent, ROOT, ROOT, parent):
         proc = subprocess.run([sys.executable, "-c", COMPARE_SNIPPET, str(root),
@@ -2258,6 +2375,15 @@ def compare_phase(parent: Path, gpu_line: str) -> dict:
             "kernel": kernel, "layers": list(layers),
             "parent_ms": [sum(runs[i][n] for n in layers) for i in (0, 3)],
             "change_ms": [sum(runs[i][n] for n in layers) for i in (1, 2)]}
+    # the on-device front-end's block: both projections, every row sum
+    for kernel, layers in (("project_rows", ["project_rows:mel", "project_rows:dct"]),
+                           ("row_sum", [f"row_sum:{r}x{n}" for r, n in MFCC20_ROW_SUMS])):
+        out[f"{kernel}_per_mfcc20_block"] = {
+            "kernel": kernel, "layers": layers,
+            "parent_ms": [sum(runs[i][n] for n in layers) for i in (0, 3)],
+            "change_ms": [sum(runs[i][n] for n in layers) for i in (1, 2)]}
+    for entry in out.values():
+        entry["change_over_parent"] = sum(entry["change_ms"]) / sum(entry["parent_ms"])
     print("kernel_compare " + json.dumps({"parent": str(parent), "order": "parent, change, "
                                           "change, parent", "layers": out, "gpu": gpu_line}))
     return out
@@ -2270,8 +2396,9 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: also time its K1 and K2 at the "
-                         "serving layers beside this tree's, in turns")
+                    help="a checkout of the parent commit: also time its K1, K2, "
+                         "project_rows and row_sum at the serving shapes beside this "
+                         "tree's, in turns")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():

@@ -64,8 +64,10 @@ SIGNATURES = {
     "cordic_softmax_f32": (_P, _P, _I, _I, _P),
     # x, out, n, mode, stream
     "cordic_activation_f32": (_P, _P, _I, _I, _P),
-    # x, m, out, R, K, N, stream
-    "project_rows_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # x, m, out, R, K, N, tile, workspace, counters, stream
+    "project_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # the chunk of k project_rows sums in ascending order (PROJECT_CHUNK)
+    "project_rows_chunk": (),
     # x, out, R, n, stream
     "row_sum_f32": (_P, _P, _I, _I, _P),
     # stream: an empty kernel, the launch floor chip_smoke.py measures
@@ -187,6 +189,44 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+class SplitScratch:
+    """The workspace and tile counters of a kernel whose grid splits a sum
+    over blocks (K1's K splits, ``project_rows``'s chunks of k), one pair
+    per device and stream, so that two streams never share one.  Both are
+    zeroed when allocated; each split call leaves the counters (and K1 its
+    workspace) as it found them.  Fleet lanes launch from several threads:
+    the table is locked (the launches themselves are ordered by their
+    stream)."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self._table: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._lock = threading.Lock()
+
+    def __getitem__(self, key: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        return self._table[key]
+
+    def get(self, device: torch.device, stream: int, values: int, tiles: int):
+        """``(workspace, counters)`` for ``device`` and ``stream``, grown to
+        at least ``values`` and ``tiles`` entries."""
+        key = (device, stream)
+        with self._lock:
+            ws, counters = self._table.get(key, (None, None))
+            if ws is None or ws.numel() < values or counters.numel() < tiles:
+                size = max(values, 0 if ws is None else ws.numel())
+                count = max(tiles, 0 if counters is None else counters.numel())
+                ws = torch.zeros(size, dtype=self.dtype, device=device)
+                counters = torch.zeros(count, dtype=torch.int32, device=device)
+                self._table[key] = (ws, counters)
+        return ws, counters
+
+    def drop(self, device: torch.device, stream: int) -> None:
+        """Forget the pair after a failed launch, which may have left a
+        partial sum or a counter behind."""
+        with self._lock:
+            self._table.pop((device, stream), None)
 
 
 _count_lock = threading.Lock()

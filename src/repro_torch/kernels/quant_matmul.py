@@ -18,7 +18,6 @@ plain version's bit for bit whatever order the blocks finish in.
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 import torch
 
@@ -97,25 +96,9 @@ def qmm_tiling(m: int, k: int, n: int) -> QmmTiling:
     return QmmTiling(bm, m_tiles, n_tiles, -(-chunks // per_block), per_block)
 
 
-#: (device, stream) -> (int32 workspace, int32 tile counters), both zero
+#: K1's int32 workspace and tile counters per device and stream, both zero
 #: between calls: each split call leaves them as it found them
-_scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
-#: fleet lanes call K1 from several threads: the workspace table is locked
-#: (the launches themselves are ordered by their stream)
-_scratch_lock = threading.Lock()
-
-
-def _split_scratch(device: torch.device, stream: int, ints: int, tiles: int):
-    key = (device, stream)
-    with _scratch_lock:
-        ws, counters = _scratch.get(key, (None, None))
-        if ws is None or ws.numel() < ints or counters.numel() < tiles:
-            size = max(ints, 0 if ws is None else ws.numel())
-            count = max(tiles, 0 if counters is None else counters.numel())
-            ws = torch.zeros(size, dtype=torch.int32, device=device)
-            counters = torch.zeros(count, dtype=torch.int32, device=device)
-            _scratch[key] = (ws, counters)
-    return ws, counters
+_scratch = backend.SplitScratch(torch.int32)
 
 
 def _check_args(x_q, w_q, x_scale, w_scale, bias, act):
@@ -191,7 +174,7 @@ def quant_matmul(
         stream = backend.stream_ptr(x_q)
         work = counters = None
         if tile.splits > 1:
-            work, counters = _split_scratch(x_q.device, stream, m * n, tile.m_tiles * tile.n_tiles)
+            work, counters = _scratch.get(x_q.device, stream, m * n, tile.m_tiles * tile.n_tiles)
         lib = backend.library()
         with torch.cuda.device(x_q.device):
             err = lib.quant_matmul_i8(
@@ -206,8 +189,7 @@ def quant_matmul(
                 tile.bm, tile.chunks_per_block, tile.splits, stream,
             )
         if err != 0:
-            # a launch that failed may have left partial sums behind
-            _scratch.pop((x_q.device, stream), None)
+            _scratch.drop(x_q.device, stream)
         backend.check(err, "quant_matmul_i8")
         backend.count_launch(quant_matmul)
     return acc if return_acc else out

@@ -12,11 +12,13 @@ kernels; bf16 and fp32 layers sum through the fixed-order row product
 :func:`~repro_torch.kernels.frontend.project_rows` (a dense layer is
 ``project_rows(h, w) + b``, a conv ``project_rows`` of its im2col rows),
 bf16 layers on bf16-rounded operands widened to fp32, so that the products
-are exact and only the order of the sums matters.  That order is one
-ascending ``k`` on both devices and at every batch size: no cuBLAS, cuDNN
-or CPU BLAS call, each of which picks its blocking by shape, is left on the
-float path, so a float layer's row is bitwise independent of its co-batch
-and the card gives the CPU's bits.  It is not the reference's order (XLA's
+are exact and only the order of the sums matters.  That order depends on
+``K`` alone (ascending ``k`` within chunks of
+:data:`~repro_torch.kernels.frontend.PROJECT_CHUNK`, the chunk partials
+left to right) and is the same on both devices and at every batch size:
+no cuBLAS, cuDNN or CPU BLAS call, each of which picks its blocking by
+shape, is left on the float path, so a float layer's row is bitwise
+independent of its co-batch and the card gives the CPU's bits.  It is not the reference's order (XLA's
 ``einsum`` and conv), so float layers agree with the reference within a
 tolerance (``tests/test_torch_forward.py``).  A pruned artifact's
 ``keep_frames`` trims frames between the last pool and the flatten, which

@@ -6,7 +6,9 @@ zcr front-end gives the reference's bits).  Forwards from the same fp32
 params match the reference bitwise in the int8 and fxp8 cells.
 
 The bf16/fp32 layers do not sum in the reference's order.  The port sums
-each of them in one fixed order, ascending ``k`` (``project_rows``), on
+each of them in one fixed order that depends on ``K`` alone
+(``project_rows``: ascending ``k`` within chunks of 1,024, the chunk
+partials left to right, so one ascending chain up to ``K`` = 1,024), on
 both devices and at every batch size, so a row's bits never depend on its
 co-batch and the card gives the CPU's bits; XLA's ``einsum`` and conv on
 the CPU add in an order of their own, which changes with the batch size.

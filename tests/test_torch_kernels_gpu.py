@@ -4,7 +4,8 @@ per-tensor and per-sample scales and clip, and K1's split-K workspace left
 clean),
 K3b in all seven modes (on every angle the unit can see, at ragged sizes
 and on views at odd offsets), the front-end's fixed-order primitives (the
-projection also at the float layers' shapes), the row independence of the
+projection also at the float layers' shapes, and at ragged shapes with
+every tile, its k split over chunks and not), the row independence of the
 on-device front-end and of a float dense layer at the canonical width, and
 the sharded forward over entries of one card.
 
@@ -225,9 +226,33 @@ def test_frontend_primitives_vs_plain_on_card(card):
         x = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(card)
         m = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(card)
         assert _bits_equal(frontend.project_rows(x, m), frontend.project_rows_plain(x, m))
-    for r, n in ((8, 1096), (4104, 51), (3, 1), (2, 65), (5, 100), (3, 4104), (1, frontend.MAX_ROW)):
+    for r, n in ((8, 1096), (4104, 51), (4104, 12), (3, 1), (300, 7), (130, 32), (2, 33),
+                 (2, 65), (5, 100), (9, 2048), (3, 2049), (3, 4104), (1, frontend.MAX_ROW)):
         x = torch.from_numpy(rng.standard_normal((r, n)).astype(np.float32)).to(card)
-        assert _bits_equal(frontend.row_sum(x), frontend.row_sum_plain(x))
+        assert _bits_equal(frontend.row_sum(x), frontend.row_sum_plain(x)), (r, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 13, 1025, 2047])
+def test_project_rows_ragged_with_every_tile_on_card(card, monkeypatch, k):
+    """K on both sides of a chunk (the split and its finish), N around the
+    16-byte vectors and the tiles, R of 1 and 7 rows: the chosen tile and
+    every other tile give the plain twin's bits, one launch a call."""
+    rng = np.random.default_rng(k)
+    chosen = frontend.project_tiling
+    for r in (1, 7):
+        for n in (1, 2, 20, 33):
+            x = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(card)
+            m = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(card)
+            want = frontend.project_rows_plain(x, m)
+            for tile in [None, *range(len(frontend.PROJECT_TILES))]:
+                monkeypatch.setattr(frontend, "project_tiling", chosen if tile is None else
+                                    lambda *a, t=tile: frontend.tiling_with(t, *a))
+                before = frontend.project_rows.launches
+                got = frontend.project_rows(x, m)
+                torch.cuda.synchronize()
+                assert frontend.project_rows.launches == before + 1
+                assert _bits_equal(got, want), (r, k, n, tile)
 
 
 @pytest.mark.gpu
@@ -258,6 +283,7 @@ def test_project_rows_at_float_layer_shapes_on_card(card, r, k, n):
     torch.cuda.synchronize()
     assert frontend.project_rows.launches == before + 1
     assert _bits_equal(got, frontend.project_rows_plain(x, m))
+    assert _bits_equal(frontend.project_rows(x, m), got)  # the split's finish is deterministic
 
 
 def _canonical_artifact(policy, device):
