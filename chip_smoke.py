@@ -113,7 +113,28 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    test windows through K1-K3 (launches counted) with ``deviation_report``,
    the int8 artifact's card probabilities bitwise the CPU's; and the
    driver's quick-train default path and ``--trained`` (2 streams x 4 s).
-   The ``training`` line holds the numbers.  With ``--parent DIR``, K1's
+   The ``training`` line holds the numbers.
+
+9. the LM serving stack (``lm_phase``): gemma-2b at its published
+   configuration (2,506,172,416 params, bf16, ``init_params`` seed 0 on
+   the card) serves the JAX serve driver's traffic (6 requests of 4-24
+   tokens, 12 new tokens each, 4 slots, 256 positions) through
+   ``BatchedServer``, fixed and adaptive slots, each twice with the same
+   tokens; tokens/s, prefill and decode ms a step (CUDA events), one
+   decode step's device time and ops (CUPTI), peak memory, beside the
+   decode step's bytes bound (``lm_serve``); the same traffic on
+   ``quantize_lm_params`` weights, quantised on the card and bitwise a CPU
+   quantisation of the same weights (``lm_serve_int8``); for all ten
+   architectures at their published widths, one pattern group deep, fp32,
+   prefill and two decode steps against the full forward
+   (``LM_CONSISTENCY_TOL``, ``lm_consistency``); every smoke config and
+   gemma-2b at one layer on the card against the CPU (``LM_CARD_CPU_TOL``,
+   ``lm_card_vs_cpu``); and ``policy_einsum(use_kernel=True)`` in int8 and
+   fxp8 at gemma-2b's ``wi_gate`` shape (4 x 2,048 x 16,384) on K1, bitwise
+   its plain twin, timed beside its bound and a bf16 ``torch.matmul``
+   (``lm_policy_einsum``; these two calls are K1's LM launches).
+
+With ``--parent DIR``, K1's
 and K2's device time at every serving layer, and ``project_rows``'s and
 ``row_sum``'s at the mfcc20 block's and the float layers' shapes, is
 then taken for DIR's kernels and this tree's in fresh processes, in the
@@ -125,6 +146,7 @@ Output: per-phase lines, one JSON line with every kernel's numbers, the
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -889,7 +911,7 @@ def frontend_primitive_phase(torch, np, dev, gpu_line):
           f"ones (K 1-2,047, N 1-33, R 1 and 7), each with the chosen tile and every tile; "
           f"row_sum at the block's shapes and {ROW_SUM_RAGGED}: bitwise=True")
 
-    def timed(cases, kernel, plain, library, cost):
+    def timed(cases, kernel, plain, library, cost, per="mfcc20 block of 8"):
         ms = plain_ms = lib_ms = 0.0
         bytes_moved = ops = 0
         for args in cases:
@@ -911,14 +933,21 @@ def frontend_primitive_phase(torch, np, dev, gpu_line):
             bytes_moved, ops = bytes_moved + b, ops + o
         b_ms, b_by = bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
         line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        print("kernel_time " + json.dumps({"kernel": kernel.__name__, "per": "mfcc20 block of 8",
-                                           **line, "bound_share": b_ms / ms, "gpu": gpu_line}))
+        if per is not None:
+            print("kernel_time " + json.dumps({"kernel": kernel.__name__, "per": per, **line,
+                                               "bound_share": b_ms / ms, "gpu": gpu_line}))
         return line
 
     p_line = timed(proj_cases, project_rows, project_rows_plain, torch.matmul,
                    lambda x, m: project_cost(*x.shape, m.shape[1]))
+    def row_cost(x):
+        return 4 * (x.numel() + x.shape[0]), x.numel()
+
     s_line = timed([(x,) for x in sum_cases], row_sum, row_sum_plain, lambda x: x.sum(dim=1),
-                   lambda x: (4 * (x.numel() + x.shape[0]), x.numel()))
+                   row_cost)
+    # the longest row the kernel takes (not on the main path), on its own line
+    timed([(rand(1, 32 * 1024),)], row_sum, row_sum_plain, lambda x: x.sum(dim=1), row_cost,
+          per=None)
     common = dict(route="cuda", source="src/repro_torch/csrc/frontend_rows.cu", replaces=None,
                   max_abs_err=err)
     return {
@@ -2202,6 +2231,409 @@ def training_phase(torch, np, dev, gpu_line) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM serving stack
+# ---------------------------------------------------------------------------
+
+#: the served architecture, its published parameter count, and the JAX
+#: serve driver's traffic: 6 requests of 4-24 tokens (numpy seed 0), 12 new
+#: tokens each, 4 slots, caches for 256 positions
+LM_ARCH = "gemma-2b"
+LM_PARAMS = 2_506_172_416
+LM_REQUESTS, LM_MAX_NEW, LM_SLOTS, LM_MAX_SEQ = 6, 12, 4, 256
+#: prefill and decode against the full forward, fp32 at the published
+#: widths, ``assert_allclose(rtol=tol, atol=tol)``: the reference's own
+#: bounds (``tests/test_lm_archs.py::test_prefill_decode_matches_forward``).
+#: cuBLAS picks another kernel, so another order of the sums, for the 52-row
+#: forward, the 48-row prefill and the 2-row decode; fp32 sums of up to
+#: 16,384 products stay near 1e-5 relative, TF32 (10-bit mantissas) would not
+LM_CONSISTENCY_TOL = {"prefill": 2e-4, "decode": 2e-3}
+#: card against the port's CPU run of the same weights, fp32 logits: two
+#: BLAS libraries, as the CPU tests hold the port against JAX (2e-4), or,
+#: where larger, ``LM_CARD_CPU_ULPS`` times the change that a random
+#: one-ulp (a factor 1 +- 2^-23) perturbation of every weight makes to the CPU's
+#: logits: a config as ill-conditioned as zamba2's smoke config (six
+#: layers, its SSM output renormalised) turns fp32 rounding into 5e-4.  The
+#: factor is about three times the largest ratio of error to nudge that the
+#: sound port reads on an H100 (phi3.5-moe 1.69, hubert 1.44, zamba2 0.80,
+#: the rest 0.23-0.74)
+LM_CARD_CPU_TOL, LM_CARD_CPU_ULPS = 2e-4, 5
+#: gemma-2b at full width, one layer, in bf16 as served (plain and int8
+#: weights), card against CPU: the max and mean of |card - CPU| over the
+#: max and mean of |CPU logits|, the bf16 limits of the CPU tests
+#: (``tests/test_torch_lm_archs.py``: 0.08 and 0.007 on logits of max 1.99
+#: and mean 0.397, set between the sound port and planted misplaced casts)
+#: taken relative to the logit scale
+LM_BF16_REL = {"max": 0.04, "mean": 0.0175}
+LM_CONSISTENCY_B, LM_CONSISTENCY_S, LM_CONSISTENCY_MAX = 2, 24, 40
+#: decode steps in the CUPTI trace of the ``lm_serve`` line (a device time
+#: a step is the trace's sum over them)
+LM_TRACE_STEPS = 3
+
+
+def lm_requests(np, request_cls, vocab: int) -> list:
+    """The JAX serve driver's requests (``repro/launch/serve.py:main``)."""
+    rng = np.random.default_rng(0)
+    return [request_cls(rid=i, prompt=rng.integers(0, vocab, rng.integers(4, 24)).astype(np.int32),
+                        max_new=LM_MAX_NEW) for i in range(LM_REQUESTS)]
+
+
+def lm_batch(np, torch, cfg, dev, seq: int, seed: int = 2) -> dict:
+    """Seeded inputs of ``LM_CONSISTENCY_B`` rows: tokens (or hubert's
+    frames) and internvl2's patches."""
+    rng = np.random.default_rng(seed)
+    b = LM_CONSISTENCY_B
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.from_numpy(
+            rng.standard_normal((b, seq, cfg.frontend_dim)).astype(np.float32)).to(dev)}
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, seq)).astype(np.int32)).to(dev)}
+    if cfg.frontend == "vision_patches":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)).to(dev)
+    return batch
+
+
+def lm_serve_run(torch, np, server, request_cls, vocab: int) -> dict:
+    """Serve the JAX serve driver's requests once: tokens, tokens/s (host clock
+    around a synchronised run), and the prefill and decode calls' stream
+    time (CUDA events around each call)."""
+    spans = {"prefill": [], "decode": []}
+
+    def timed(fn, into):
+        def call(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            into.append((a, b))
+            return out
+        return call
+
+    prefill, decode = server._prefill, server._decode
+    server._prefill, server._decode = timed(prefill, spans["prefill"]), timed(decode, spans["decode"])
+    try:
+        reqs = lm_requests(np, request_cls, vocab)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = server.serve(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        server._prefill, server._decode = prefill, decode
+    check([r.rid for r in done] == list(range(LM_REQUESTS)), "lm: requests out of order")
+    for r in done:
+        check(r.out is not None and len(r.out) == LM_MAX_NEW,
+              f"lm: request {r.rid} returned {None if r.out is None else len(r.out)} tokens")
+        check(bool(((r.out >= 0) & (r.out < vocab)).all()), f"lm: request {r.rid} token out of range")
+    n_tok = sum(len(r.out) for r in done)
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    return {"tokens": [r.out.tolist() for r in done], "n_tokens": n_tok, "seconds": seconds,
+            "tokens_per_s": n_tok / seconds, "prefill_ms": ms["prefill"],
+            "decode_ms_per_step": statistics.median(ms["decode"]),
+            "decode_steps": len(ms["decode"])}
+
+
+def lm_quantized_equals_cpu(torch, params, qparams, policy, quantize_leaf, QTensor) -> int:
+    """Every leaf of the card's quantised tree against a CPU quantisation of
+    the same weight: ``q``, ``scale`` and ``axis`` bitwise, one leaf at a
+    time; returns the number of ``QTensor`` leaves."""
+    n_q = 0
+
+    def walk(p, q, path):
+        nonlocal n_q
+        if isinstance(p, dict):
+            for k in p:
+                walk(p[k], q[k], f"{path}/{k}" if path else k)
+            return
+        want = quantize_leaf(path, p.cpu(), policy)
+        if isinstance(want, QTensor):
+            check(isinstance(q, QTensor) and q.q.device.type == "cuda",
+                  f"lm: {path} not quantised on the card")
+            check(q.axis == want.axis and torch.equal(q.q.cpu(), want.q)
+                  and torch.equal(q.scale.cpu().view(torch.int32), want.scale.view(torch.int32)),
+                  f"lm: the card's int8 {path} differs from the CPU's")
+            n_q += 1
+        else:
+            check(q is p, f"lm: {path} should stay unquantised")
+
+    walk(params, qparams, "")
+    return n_q
+
+
+def lm_phase(torch, np, dev, gpu_line) -> dict[str, int]:
+    """The port's LM serving stack on the card: gemma-2b at its published
+    configuration served through ``BatchedServer`` in bf16 and with int8
+    weights; prefill/decode against the forward for all ten architectures
+    at their published widths, one pattern group deep; each smoke config
+    (and gemma-2b, one layer) on the card against the CPU; and
+    ``policy_einsum`` on K1.  Returns K1's launches of the main-path
+    ``policy_einsum`` calls."""
+    from repro_torch.configs import get_config, lm_arch_names
+    from repro_torch.core.precision_policy import Precision, policy_einsum
+    from repro_torch.core.quantization import QTensor, fxp8_quantize, int8_symmetric
+    from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.quantized import (
+        default_lm_policy, quantize_leaf, quantize_lm_params, quantized_fraction)
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "lm: TF32 matmuls are on")
+    bf16_reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.cuda.empty_cache()
+    gb = 1024 ** 3
+
+    # 1. lm_serve: gemma-2b at its published configuration, bf16
+    cfg = get_config(LM_ARCH)
+    check(T.param_count(cfg) == LM_PARAMS, f"lm: {LM_ARCH} counts {T.param_count(cfg)} params")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(n_params == LM_PARAMS and all(t.device.type == "cuda" for t in leaves),
+          f"lm: {n_params} params, or not all on the card")
+    check(params["groups"]["pos0"]["mlp"]["wi_gate"].dtype == torch.bfloat16, "lm: not bf16")
+    bound_step_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+
+    def serve_twice(p, adaptive=False):
+        server = BatchedServer(cfg, p, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                               adaptive_slots=adaptive, device=dev)
+        first = lm_serve_run(torch, np, server, Request, cfg.vocab)
+        second = lm_serve_run(torch, np, server, Request, cfg.vocab)
+        check(first["tokens"] == second["tokens"], "lm: two runs gave different tokens")
+        return server, second
+
+    with torch.inference_mode():
+        server, run = serve_twice(params)
+        aserver, run_adaptive = serve_twice(params, adaptive=True)
+        # one decode step's device work (CUPTI) on the first block's caches
+        reqs = lm_requests(np, Request, cfg.vocab)[:LM_SLOTS]
+        s = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((LM_SLOTS, s), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, s - len(r.prompt):] = r.prompt
+        logits, caches = T.forward_with_cache(
+            server.params, {"tokens": torch.from_numpy(toks).to(dev)}, cfg, LM_MAX_SEQ)
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        def step():
+            return T.decode_step(server.params, cur, caches, s, cfg, LM_MAX_SEQ)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        host_ms = []
+        for _ in range(3):  # the host's time to issue one step, then drain
+            t0 = time.perf_counter()
+            step()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        ops = device_ops(torch, step, iters=LM_TRACE_STEPS)
+        check(bool(ops), "lm: the decode step's trace holds no device activity")
+        step_dev_ms = sum(e.time_range.elapsed_us() for e in ops) / LM_TRACE_STEPS / 1e3
+        kinds = collections.Counter(
+            "memcpy" if "memcpy" in e.name.lower() else "memset" if "memset" in e.name.lower()
+            else "kernel" for e in ops)
+    peak = torch.cuda.max_memory_allocated() / gb
+    line = {
+        "arch": LM_ARCH, "params": n_params, "dtype": "bfloat16", "weight_bytes": weight_bytes,
+        "requests": LM_REQUESTS, "max_new": LM_MAX_NEW, "slots": LM_SLOTS,
+        "max_seq": LM_MAX_SEQ, "init_s": init_s,
+        **{k: v for k, v in run.items() if k != "tokens"},
+        "slot_histogram": server.slot_histogram,
+        "adaptive": {"tokens_per_s": run_adaptive["tokens_per_s"],
+                     "decode_ms_per_step": run_adaptive["decode_ms_per_step"],
+                     "decode_steps": run_adaptive["decode_steps"],
+                     "slot_histogram": aserver.slot_histogram},
+        "decode_step_device_ms": step_dev_ms,
+        "decode_step_device_ops": len(ops) / LM_TRACE_STEPS,
+        "decode_step_ops_by_kind": {k: v / LM_TRACE_STEPS for k, v in kinds.items()},
+        "decode_step_host_ms": statistics.median(host_ms),
+        "decode_busy_share": step_dev_ms / run["decode_ms_per_step"],
+        "decode_bound_ms": bound_step_ms, "decode_bound_by": "bytes",
+        "bound_tokens_per_s": LM_SLOTS / (bound_step_ms / 1e3),
+        "peak_gb": peak, "allow_bf16_reduced_precision_reduction": bf16_reduced,
+        "first_request_tokens": run["tokens"][0], "gpu": gpu_line,
+    }
+    print("lm_serve " + json.dumps(line))
+    del server, aserver, logits, caches
+
+    # 2. lm_serve_int8: the same traffic on weight-only int8
+    policy = default_lm_policy(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_lm_params(params, policy)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    n_q = lm_quantized_equals_cpu(torch, params, qparams, policy, quantize_leaf, QTensor)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        qserver, qrun = serve_twice(qparams)
+    qleaves = tree_leaves(qparams)
+    q_bytes = sum(t.q.numel() + 4 * t.scale.numel() if isinstance(t, QTensor)
+                  else t.numel() * t.element_size() for t in qleaves)
+    print("lm_serve_int8 " + json.dumps({
+        "arch": LM_ARCH, "qtensor_leaves": n_q, "card_equals_cpu_quantisation": True,
+        "quantized_fraction": quantized_fraction(qparams), "quantise_s": quant_s,
+        "weight_bytes": q_bytes, **{k: v for k, v in qrun.items() if k != "tokens"},
+        "bf16_tokens_per_s": run["tokens_per_s"],
+        "over_bf16": qrun["tokens_per_s"] / run["tokens_per_s"],
+        "decode_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3,
+        "peak_gb": torch.cuda.max_memory_allocated() / gb,
+        "slot_histogram": qserver.slot_histogram, "gpu": gpu_line}))
+    wi_gate = params["groups"]["pos0"]["mlp"]["wi_gate"][0].float()
+    del qserver, qparams, qleaves, params, leaves
+    torch.cuda.empty_cache()
+
+    # 3. lm_consistency: every architecture at its published widths, one
+    # pattern group deep, fp32: prefill and two decode steps == forward
+    b, s, mx = LM_CONSISTENCY_B, LM_CONSISTENCY_S, LM_CONSISTENCY_MAX
+    for arch in lm_arch_names():
+        full_cfg = get_config(arch)
+        acfg = full_cfg.replace(n_layers=len(full_cfg.pattern), param_dtype="float32",
+                                act_dtype="float32",
+                                capacity_factor=16.0 if full_cfg.n_experts else
+                                full_cfg.capacity_factor)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            p = T.init_params(0, acfg, device=dev)
+            batch = lm_batch(np, torch, acfg, dev, s + 2)
+            full = T.forward(p, batch, acfg)
+            check(bool(torch.isfinite(full).all()), f"lm_consistency: {arch} non-finite logits")
+            res = {"arch": arch, "params": T.param_count(acfg), "layers": acfg.n_layers,
+                   "logit_scale": float(full.abs().max())}
+            if not acfg.is_encoder:
+                # internvl2's 256 patches lead the sequence: the caches hold
+                # them too (a linear cache clamps writes past its end)
+                off = acfg.n_patches if acfg.frontend == "vision_patches" else 0
+                pre = {k: (v[:, :s] if k == "tokens" else v) for k, v in batch.items()}
+                last, caches = T.forward_with_cache(p, pre, acfg, mx + off)
+                errs = {"prefill": max_abs(torch, last[:, 0], full[:, s - 1 + off])}
+                check(torch.allclose(last[:, 0], full[:, s - 1 + off],
+                                     rtol=LM_CONSISTENCY_TOL["prefill"],
+                                     atol=LM_CONSISTENCY_TOL["prefill"]),
+                      f"lm_consistency: {arch} prefill differs from forward by {errs['prefill']}")
+                errs["decode"] = []
+                for i in range(2):
+                    lg, caches = T.decode_step(p, batch["tokens"][:, s + i:s + i + 1], caches,
+                                               s + i + off, acfg, mx + off)
+                    want = full[:, s + i + off]
+                    errs["decode"].append(max_abs(torch, lg[:, 0], want))
+                    check(torch.allclose(lg[:, 0], want, rtol=LM_CONSISTENCY_TOL["decode"],
+                                         atol=LM_CONSISTENCY_TOL["decode"]),
+                          f"lm_consistency: {arch} decode step {i} differs from forward by "
+                          f"{errs['decode'][-1]}")
+                res.update(max_abs=errs, tol=LM_CONSISTENCY_TOL)
+                del caches, last, lg
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / gb
+        print("lm_consistency " + json.dumps({**res, "gpu": gpu_line}))
+        del p, batch, full
+        torch.cuda.empty_cache()
+
+    # 4. lm_card_vs_cpu: smoke configs (and gemma-2b at full width, one
+    # layer, fp32) on the card against the port's CPU run of the same weights
+    cases = [(arch, get_config(arch).smoke()) for arch in lm_arch_names()]
+    cases.append((f"{LM_ARCH}:1-layer", get_config(LM_ARCH).replace(
+        n_layers=1, param_dtype="float32", act_dtype="float32")))
+    card_cpu = {}
+    with torch.inference_mode():
+        for name, ccfg in cases:
+            p_cpu = T.init_params(0, ccfg, device="cpu")
+            batch = lm_batch(np, torch, ccfg, torch.device("cpu"), LM_CONSISTENCY_S)
+            want = T.forward(p_cpu, batch, ccfg)
+            gen = torch.Generator().manual_seed(SEED)
+            nudged = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+                t.shape, generator=gen).sign()), p_cpu)
+            ulp = max_abs(torch, T.forward(nudged, batch, ccfg), want)
+            tol = max(LM_CARD_CPU_TOL, LM_CARD_CPU_ULPS * ulp)
+            got = T.forward(T.params_to(p_cpu, dev), {k: v.to(dev) for k, v in batch.items()},
+                            ccfg).cpu()
+            err = max_abs(torch, got, want)
+            card_cpu[name] = {"max_abs": err, "one_ulp_change": ulp, "tol": tol,
+                              "logit_scale": float(want.abs().max())}
+            check(err <= tol, f"lm_card_vs_cpu: {name} differs by {err} (tolerance {tol})")
+            del p_cpu, nudged
+    print("lm_card_vs_cpu " + json.dumps({"archs": card_cpu, "gpu": gpu_line}))
+
+    # 4b. gemma-2b at full width, one layer, bf16 as served, plain and int8
+    # weights: the card (its bf16 GEMMs reducing as served, and in fp32)
+    # against the CPU
+    bcfg = get_config(LM_ARCH).replace(n_layers=1)
+    bf16_cases = {}
+    with torch.inference_mode():
+        p_cpu = T.init_params(0, bcfg, device="cpu")
+        check(p_cpu["groups"]["pos0"]["mlp"]["wi_gate"].dtype == torch.bfloat16,
+              "lm_card_vs_cpu_bf16: not bf16")
+        batch = lm_batch(np, torch, bcfg, torch.device("cpu"), LM_CONSISTENCY_S)
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        for wname, pc in (("bf16", p_cpu),
+                          ("int8", quantize_lm_params(p_cpu, default_lm_policy(bcfg)))):
+            want = T.forward(pc, batch, bcfg).float()
+            tol = {"max": LM_BF16_REL["max"] * float(want.abs().max()),
+                   "mean": LM_BF16_REL["mean"] * float(want.abs().mean())}
+            p_dev = T.params_to(pc, dev)
+            res = {"logit_max": float(want.abs().max()), "logit_mean": float(want.abs().mean()),
+                   "tol": tol}
+            for reduced in (True, False):
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+                try:
+                    got = T.forward(p_dev, card_batch, bcfg).float().cpu()
+                finally:
+                    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+                        bf16_reduced
+                d = (got - want).abs()
+                key = "reduced_precision_reduction" if reduced else "fp32_reduction"
+                res[key] = {"max_abs": float(d.max()), "mean_abs": float(d.mean())}
+                check(res[key]["max_abs"] <= tol["max"] and res[key]["mean_abs"] <= tol["mean"],
+                      f"lm_card_vs_cpu_bf16: {wname} ({key}) differs by {res[key]} "
+                      f"(tolerance {tol})")
+            bf16_cases[wname] = res
+            del p_dev, want, got
+        del p_cpu
+    print("lm_card_vs_cpu_bf16 " + json.dumps({
+        "arch": f"{LM_ARCH}:1-layer", "cases": bf16_cases, "rel_tol": LM_BF16_REL,
+        "allow_bf16_reduced_precision_reduction": bf16_reduced, "gpu": gpu_line}))
+
+    # 5. policy_einsum on K1 at gemma-2b's wi_gate shape (layer 0's weight)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, cfg.d_model)).astype(np.float32)).to(dev)
+    modes = (Precision.INT8, Precision.FXP8)
+    quant_matmul.launches = 0
+    outs = {m: policy_einsum("mk,kn->mn", x, wi_gate, m, use_kernel=True) for m in modes}
+    torch.cuda.synchronize()
+    launches = quant_matmul.launches
+    check(launches == len(modes), f"lm: policy_einsum launched K1 {launches} times")
+    x_cpu, w_cpu = x.cpu(), wi_gate.cpu()
+    pe = {}
+    for m in modes:
+        want = policy_einsum("mk,kn->mn", x_cpu, w_cpu, m, use_kernel=True)
+        check(bitwise(torch, outs[m].cpu(), want), f"lm: policy_einsum {m.value} on K1 differs "
+                                                   f"from its plain twin")
+        quant = int8_symmetric if m == Precision.INT8 else fxp8_quantize
+        xq, wq = quant(x, axis=None), quant(wi_gate, axis=1)
+        args = (xq.q, wq.q, xq.scale, wq.scale.reshape(1, -1))
+        k_ms, k_ops = device_time(torch, lambda: quant_matmul(*args))
+        b_ms, b_by = bound_ms(*qmm_cost(args), INT8_OPS_PER_S)
+        pe[m.value] = {
+            "ms": k_ms, "kernel_ops": len(k_ops),
+            "plain_ms": time_ms(torch, lambda: quant_matmul_plain(*args), iters=10),
+            "policy_einsum_ms": time_ms(torch, lambda: policy_einsum(
+                "mk,kn->mn", x, wi_gate, m, use_kernel=True), iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs(torch, outs[m].cpu(), want)}
+    xb, wb = x.to(torch.bfloat16), wi_gate.to(torch.bfloat16)
+    print("lm_policy_einsum " + json.dumps({
+        "shape": [4, cfg.d_model, cfg.d_ff], "launches": launches, "modes": pe,
+        "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(xb, wb)),
+        "phase_s": time.perf_counter() - t_phase, "gpu": gpu_line}))
+    return {"quant_matmul": launches}
+
+
 #: K1's and K2's layers at 8 slots, (kernel, shape) as _qmm_case / _conv_case
 #: take them, and the front-end primitives' shapes
 COMPARE_LAYERS = {
@@ -2444,6 +2876,7 @@ def main(argv: list[str] | None = None) -> int:
         add(sharded_phase(torch, np, dev, gpu_line, runs))
         sweep_phase(torch, dev, gpu_line)
         add(training_phase(torch, np, dev, gpu_line))
+        add(lm_phase(torch, np, dev, gpu_line))
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)
         for name in kernels:

@@ -5,7 +5,9 @@ mapping from parameter paths (glob patterns) to ``Precision`` modes with a
 default, serialisable to JSON so it rides along in configs and artifacts;
 ``from_sensitivity`` builds one from layer-sensitivity scores, and
 ``fake_quant_params`` applies one to a params tree on the emulation path.
-``policy_einsum`` serves the LM stack and belongs to a later slice.
+``policy_einsum`` is the precision-dispatched einsum of the LM scale: with
+``use_kernel=True`` its 8-bit modes run the W8A8 matmul, kernel K1 on a
+CUDA tensor.
 """
 from __future__ import annotations
 
@@ -17,7 +19,15 @@ from typing import Mapping
 
 import torch
 
-from repro_torch.core.quantization import Precision, quantize_tensor
+from repro_torch.core.quantization import (
+    Precision,
+    QTensor,
+    activation_quantize,
+    bf16_round,
+    fxp8_quantize,
+    int8_symmetric,
+    quantize_tensor,
+)
 
 
 @dataclasses.dataclass
@@ -112,4 +122,43 @@ def fake_quant_params(params, policy: PrecisionPolicy, prefix: str = ""):
     return walk(params, prefix)
 
 
-__all__ = ["Precision", "PrecisionPolicy", "fake_quant_params"]
+def policy_einsum(
+    spec: str,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    precision: Precision,
+    *,
+    use_kernel: bool = False,
+    act_alpha: float = 6.0,
+) -> torch.Tensor:
+    """A precision-dispatched einsum: the shared datapath's MAC bank.
+
+    FP32 is a plain fp32 einsum (no TF32 on the card while
+    ``torch.backends.cuda.matmul.allow_tf32`` stays off), BF16 a bf16
+    einsum of bf16-rounded operands, widened back.  The 8-bit modes quantise
+    the weight per output channel; with ``use_kernel=True`` and a 2-D spec
+    they also quantise x per tensor and run the W8A8 matmul
+    (:func:`repro_torch.kernels.quant_matmul.quant_matmul`: kernel K1 on a
+    CUDA tensor, its plain twin on a CPU tensor), otherwise the fake-quant
+    emulation (PACT activations times the dequantised weight).  The
+    quantisers run eagerly, as the reference calls them: scales divide by
+    127.
+    """
+    if precision == Precision.FP32:
+        return torch.einsum(spec, x, w)
+    if precision == Precision.BF16:
+        return torch.einsum(
+            spec, bf16_round(x).to(torch.bfloat16), w.to(torch.bfloat16)
+        ).to(torch.float32)
+    quant = int8_symmetric if precision == Precision.INT8 else fxp8_quantize
+    wq: QTensor = quant(w, axis=w.ndim - 1)
+    if use_kernel and spec in ("mk,kn->mn", "bk,kn->bn"):
+        from repro_torch.kernels.quant_matmul import quant_matmul
+
+        xq = quant(x, axis=None)
+        return quant_matmul(xq.q, wq.q, xq.scale, wq.scale.reshape(1, -1))
+    xf = activation_quantize(x, precision, act_alpha)
+    return torch.einsum(spec, xf, wq.dequantize())
+
+
+__all__ = ["Precision", "PrecisionPolicy", "fake_quant_params", "policy_einsum"]

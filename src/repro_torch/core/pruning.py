@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/core/pruning.py`` (``PruneSpec``,
 ``channel_importance``, ``plan_prune``, ``apply_prune_conv``,
-``apply_prune_dense``).  Channel importance is the L1 norm of each output
+``apply_prune_dense``, and the LM generalisation ``prune_ffn``).  Channel importance is the L1 norm of each output
 channel of the last conv; the top ``keep`` channels survive, the prune is
 propagated into the consumer dense layer's rows (flatten order is
 ``(frames, channels)`` row-major), and ``trim_frames`` boundary frames are
@@ -16,6 +16,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.xla_sum import xla_row_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +104,22 @@ def apply_prune_dense(
     fr = torch.as_tensor(spec.keep_frames, dtype=torch.long, device=w.device)
     ch = torch.as_tensor(spec.keep_channels, dtype=torch.long, device=w.device)
     return w[fr][:, ch].reshape(spec.flatten_after, -1)
+
+
+def prune_ffn(
+    w_in: torch.Tensor, w_out: torch.Tensor, *, keep: int
+) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Structured hidden-channel prune of a dense FFN (LM generalisation).
+
+    ``w_in``: (d_model, d_ff), ``w_out``: (d_ff, d_model).  Importance of a
+    hidden channel is ||w_in[:, c]||_1 * ||w_out[c, :]||_1 (flow through the
+    channel), each norm summed in the reference's order of additions
+    (:func:`~repro_torch.kernels.xla_sum.xla_row_sum`; bitwise for float32
+    weights), so the same channels survive.  Returns sliced weights + kept
+    indices."""
+    l1_in = xla_row_sum(w_in.to(torch.float32).abs().T)[..., 0]
+    l1_out = xla_row_sum(w_out.to(torch.float32).abs())[..., 0]
+    imp = (l1_in * l1_out).cpu().numpy()
+    keep_idx = np.sort(np.argsort(imp)[::-1][:keep])
+    idx = torch.as_tensor(keep_idx, dtype=torch.long, device=w_in.device)
+    return w_in[:, idx], w_out[idx, :], keep_idx

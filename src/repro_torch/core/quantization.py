@@ -1,8 +1,9 @@
 """Precision-aware quantisation (SHIELD8-UAV §III-B).
 
 Counterpart of ``repro/core/quantization.py``: the numeric modes
-(``Precision``), the two deployment quantisers that produce real int8
-payloads plus scales (``int8_symmetric``, ``fxp8_quantize``), and the
+(``Precision``), the deployment quantisers that produce real int8
+payloads plus scales (``int8_symmetric``, its layer-stacked form
+``int8_symmetric_keep``, ``fxp8_quantize``), and the
 emulation quantisers that return fake-quantised fp32 tensors and drive the
 accuracy tables: PwQ for weights (paper eqs. 4-6), PACT for activations
 (eqs. 7-8) with its straight-through gradient (``pact_ste``), and
@@ -102,6 +103,18 @@ def int8_symmetric(w: torch.Tensor, axis: Optional[int] = None, *,
     amax = torch.clamp_min(_amax(w, axis), 1e-12)
     scale = _over_127(amax, jitted)
     return QTensor(q=_to_int8(w, scale), scale=scale, axis=axis)
+
+
+def int8_symmetric_keep(w: torch.Tensor, keep_axes: tuple[int, ...]) -> QTensor:
+    """Symmetric int8 with scales kept along ``keep_axes`` (e.g. the stacked
+    layer axis 0 *and* the output-channel axis -1 for layer-stacked
+    weights); ``axis`` is the largest kept axis, as in the reference."""
+    w = w.to(torch.float32)
+    keep = {a % w.ndim for a in keep_axes}
+    red = tuple(i for i in range(w.ndim) if i not in keep)
+    amax = w.abs().amax(dim=red, keepdim=True) if red else w.abs()
+    scale = _over_127(torch.clamp_min(amax, 1e-12), False)
+    return QTensor(q=_to_int8(w, scale), scale=scale, axis=max(keep))
 
 
 def fxp8_quantize(w: torch.Tensor, axis: Optional[int] = None, *,

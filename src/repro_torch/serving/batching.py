@@ -13,8 +13,8 @@ work items (ready acoustic windows, queued LM requests) are packed into
 slot-blocks of a compiled program and rotated through a bounded in-flight
 pipeline.  Before this module, the detector fleet
 (``MonitorEngine``) and the LM side
-(``BatchedServer``, not ported yet) each carried a private half-copy
-of that machinery; both now run on :class:`DispatchCore`.
+(``BatchedServer``, ``repro_torch/launch/serve.py``) each carried a
+private half-copy of that machinery; both now run on :class:`DispatchCore`.
 
 The pieces, bottom up:
 

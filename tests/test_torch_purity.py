@@ -112,3 +112,23 @@ def test_entry_points_raise_without_gpu_by_default(no_card, tmp_path):
         qp, cfg, state_dir=str(tmp_path / "none"), feature_kind="zcr", device="cpu") is None
     # asked for the CPU, the same artifact serves
     assert accelerator_forward(qp, x, cfg, device="cpu").shape == (2, 2)
+
+
+def test_lm_entry_points_raise_without_gpu_by_default(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("gemma-2b").smoke()
+    params = T.init_params(0, cfg, device="cpu")
+    for call in (
+        lambda: T.init_params(0, cfg),
+        lambda: serve.BatchedServer(cfg, params),
+        lambda: serve.main(["--requests", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for the CPU, the same params serve
+    done = serve.BatchedServer(cfg, params, device="cpu").serve(
+        [serve.Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=2)])
+    assert len(done[0].out) == 2
