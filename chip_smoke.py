@@ -134,6 +134,35 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    its plain twin, timed beside its bound and a bf16 ``torch.matmul``
    (``lm_policy_einsum``; these two calls are K1's LM launches).
 
+10. the LM training stack (``lm_train_phase``), after phase 9's params are
+   freed: gemma-2b at its published configuration (2,506,172,416 params,
+   bf16, remat) trained through the driver ``repro_torch.launch.train.main``
+   (``--batch 8 --seq 128 --n-micro 2``, ``synthetic_lm_batches``,
+   checkpoints under ``build/lm_train``): (a) 8 steps, ms a step from CUDA
+   events and the host clock, tokens/s, one step's device work (CUPTI) and
+   busy share, peak memory, the step's bound (operations at the bf16 peak
+   against bytes), losses (``lm_train``), as the driver runs (no
+   deterministic algorithms); (b) under
+   ``torch.use_deterministic_algorithms(True)``, with
+   ``CUBLAS_WORKSPACE_CONFIG`` set by this script: 8 uninterrupted steps,
+   timed beside (a), then 6 steps, a SIGTERM as the 7th begins (the
+   driver's hook saves step 6, 25.06 GB, and exits 143), then a rerun that
+   restores it and resumes to step 8: steps 7-8's losses and the final
+   params and moments bitwise the uninterrupted run's, checkpoint bytes,
+   save and restore seconds (``lm_train_resume``; the driver's other
+   saves are held in host memory, so a run writes 25 GB in all, within
+   hosts that cap a run's disk writes at 45 GiB); (c) a step with ``--compress-pod-grads``, the card's int8 round trip
+   of ``groups/pos0/attn/wq``'s gradient bitwise the CPU's
+   (``lm_train_compress``); (d) every smoke config's train step (fp32,
+   ``n_micro`` 2) against the CPU, the loss and each leaf's first moment
+   within ``LM_CARD_CPU_TOL`` / ``LM_CARD_CPU_ULPS`` (``lm_train_card_vs_cpu``),
+   and gemma-2b at one layer in bf16, ``loss_fn``'s gradients each within
+   ``LM_BF16_GRAD_NOISE`` of the CPU's own distance from an fp32
+   computation (``lm_train_card_vs_cpu_bf16``);
+   (e) ``moe_fwd_a2a`` against ``moe_fwd`` (olmoe's published width, one
+   layer) and ``embedding_gather`` against the plain gather, through NCCL
+   at world size 1 (``lm_train_collectives``).
+
 With ``--parent DIR``, K1's
 and K2's device time at every serving layer, and ``project_rows``'s and
 ``row_sum``'s at the mfcc20 block's and the float layers' shapes, is
@@ -2634,6 +2663,539 @@ def lm_phase(torch, np, dev, gpu_line) -> dict[str, int]:
     return {"quant_matmul": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM training stack
+# ---------------------------------------------------------------------------
+
+#: gemma-2b's train cell as the driver takes it: 8 x 128 tokens a step in two
+#: microbatches, remat on (its published config), 8 steps
+LM_TRAIN_ARGS = ["--arch", LM_ARCH, "--batch", "8", "--seq", "128", "--n-micro", "2",
+                 "--log-every", "1", "--ckpt-every", "50", "--steps", "8"]
+LM_TRAIN_TOKENS, LM_TRAIN_STEPS, LM_RESUME_AT, LM_TRAIN_TRACE_CALL = 8 * 128, 8, 6, 4
+#: a run's disk writes may be capped (45 GiB on the H100 hosts this phase
+#: was written for), and one gemma-2b checkpoint with its moments is 25.06
+#: GB: the phase writes one (leg (b)'s emergency save, which the resume
+#: reads back) and holds the driver's other saves in host memory
+LM_TRAIN_WRITE_LIMIT = 45 * 1024 ** 3
+#: the card-vs-CPU train steps: rows, positions, the Adam of the CPU tests
+#: (no clipping, eps 1e-3: ``tests/test_torch_lm_train.py``)
+LM_TRAIN_B, LM_TRAIN_S = 4, 24
+LM_TRAIN_BACKEND = "nccl"
+#: gemma-2b's one-layer bf16 gradients, card against CPU, each leaf's max and
+#: mean |card - CPU| over the max and mean of |CPU bf16 - fp32| (the CPU's
+#: own rounding error): bf16 rounds at the same points on both devices, so
+#: the sound card sits far inside bf16's error (at most 0.0554 of it, max,
+#: and 0.0516, mean, on an H100), about a third of these limits; a misplaced
+#: cast does not (rmsnorm in bf16, planted on the CPU at a reduced width:
+#: 0.80-1.88 of it).  Serving's relative limits (``LM_BF16_REL``) do not
+#: hold for gradients: the sound card reads up to 2.05 % of a leaf's mean
+#: (attn/wq) against 1.75 %
+LM_BF16_GRAD_NOISE = {"max": 0.2, "mean": 0.16}
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+#: the phase's checkpoints (inside the checkout, gitignored)
+LM_TRAIN_DIR = ROOT / "build" / "lm_train"
+
+
+def _bits(torch, t):
+    """``t`` as integers of its width (a bitwise view of any dtype)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _flat_named(tree, prefix=""):
+    """(``a/b`` name, tensor) pairs of a tree: dicts by sorted key, tuples
+    in order."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _flat_named(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def _tensors(tree) -> list:
+    return [t for _, t in _flat_named(tree)]
+
+
+class TrainProbe:
+    """Wraps the driver's train step, checkpoint manager and emergency save
+    (swapped into ``repro_torch.launch.train`` and
+    ``repro_torch.training.checkpoint`` while the probe is entered): each
+    step timed with CUDA events and the host clock (the ``trace_call``-th
+    traced with CUPTI instead), the manager's saves written only when
+    ``write`` (else held in memory: the machine's disk writes are capped),
+    the emergency save and the restore timed, the state saved at step
+    ``keep`` copied to the host, the state saved at step ``compare`` held
+    bitwise against that copy, and SIGTERM sent to this process as the
+    step after the ``kill_after``-th is called (the driver's hook then saves
+    the ``kill_after``-th step's state)."""
+
+    def __init__(self, torch, train_mod, ckpt_mod):
+        self.torch, self.train, self.ckpt = torch, train_mod, ckpt_mod
+        self.make_step, self.manager = train_mod.make_train_step, train_mod.CheckpointManager
+        self.save_checkpoint = ckpt_mod.save_checkpoint
+        self.kept = None
+        self.reset()
+
+    def reset(self, *, trace_call=None, keep=None, compare=None, kill_after=None, write=False):
+        self.calls, self.events, self.host_ms, self.saves = 0, [], [], []
+        self.trace_call, self.trace = trace_call, None
+        self.keep, self.compare, self.kill_after, self.write = keep, compare, kill_after, write
+        self.final_equal = self.emergency = self.restore_s = None
+
+    def __enter__(self):
+        probe, torch = self, self.torch
+
+        def make_train_step(*a, **k):
+            step = probe.make_step(*a, **k)
+
+            def timed(params, opt_state, batch):
+                probe.calls += 1
+                if probe.kill_after is not None and probe.calls == probe.kill_after + 1:
+                    import os
+                    import signal
+
+                    os.kill(os.getpid(), signal.SIGTERM)
+                torch.cuda.synchronize()
+                if probe.calls == probe.trace_call:
+                    from torch.autograd import DeviceType
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        out = step(params, opt_state, batch)
+                        torch.cuda.synchronize()
+                    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                    by_name = collections.defaultdict(lambda: [0, 0.0])
+                    for e in ops:
+                        by_name[e.name[:70]][0] += 1
+                        by_name[e.name[:70]][1] += e.time_range.elapsed_us() / 1e3
+                    probe.trace = {"ops": len(ops),
+                                   "ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+                                   "top": sorted(([k, n, ms] for k, (n, ms) in by_name.items()),
+                                                 key=lambda r: -r[2])[:12]}
+                else:
+                    a0 = torch.cuda.Event(enable_timing=True)
+                    a1 = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    a0.record()
+                    out = step(params, opt_state, batch)
+                    a1.record()
+                    torch.cuda.synchronize()
+                    probe.host_ms.append((time.perf_counter() - t0) * 1e3)
+                    probe.events.append((a0, a1))
+                return out
+
+            return timed
+
+        def emergency_save(directory, step, tree, **kw):
+            t0 = time.perf_counter()
+            path = probe.save_checkpoint(directory, step, tree, **kw)
+            probe.emergency = {"step": step, "s": time.perf_counter() - t0, "bytes": sum(
+                f.stat().st_size for f in Path(path).iterdir())}
+            return path
+
+        class Manager(self.manager):
+            def save(inner, step, tree, extra=None):
+                path = None
+                if probe.write:
+                    t0 = time.perf_counter()
+                    path = super().save(step, tree, extra)
+                    probe.saves.append({"step": step, "s": time.perf_counter() - t0,
+                                        "bytes": sum(f.stat().st_size
+                                                     for f in Path(path).iterdir())})
+                if step == probe.keep:
+                    probe.kept = [t.detach().cpu().clone() for t in _tensors(tree)]
+                if step == probe.compare:
+                    got = _tensors(tree)
+                    probe.final_equal = len(got) == len(probe.kept) and all(
+                        a.dtype == b.dtype and torch.equal(_bits(torch, a.detach().cpu()),
+                                                           _bits(torch, b))
+                        for a, b in zip(got, probe.kept))
+                return path
+
+            def maybe_restore(inner, tree_like, device="cuda"):
+                t0 = time.perf_counter()
+                out = super().maybe_restore(tree_like, device=device)
+                torch.cuda.synchronize()
+                probe.restore_s = time.perf_counter() - t0
+                return out
+
+        self.train.make_train_step, self.train.CheckpointManager = make_train_step, Manager
+        self.ckpt.save_checkpoint = emergency_save
+        return self
+
+    def __exit__(self, *exc):
+        self.train.make_train_step, self.train.CheckpointManager = self.make_step, self.manager
+        self.ckpt.save_checkpoint = self.save_checkpoint
+        return False
+
+    def step_ms(self) -> list[float]:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def lm_train_bound(cfg, tokens: int, n_params: int) -> dict:
+    """The least time one step could take on the H100: its operations (8
+    FLOP a non-embedding weight and token with remat: the forward, its
+    recomputation and a backward of twice its work; 6 for the tied
+    unembedding, not recomputed) at the bf16 peak, against its bytes were
+    each state read and written once (bf16 params in and out, fp32 moments
+    in and out, the fp32 gradient read once) at 3.35 TB/s."""
+    embed = cfg.vocab * cfg.d_model
+    flop = 8 * (n_params - embed) * tokens + 6 * embed * tokens
+    moved = n_params * (2 * 2 + 2 * 2 * 4 + 4)
+    t_ops, t_bytes = flop / BF16_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return {"flop": flop, "bytes": moved, "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lm_train_batch(np, torch, cfg, dev, b: int, s: int, seed: int = 5) -> dict:
+    """Seeded inputs and labels (about a fifth of them -1, masked)."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = rng.standard_normal((b, s, cfg.frontend_dim)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    if cfg.frontend == "vision_patches":
+        batch["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.frontend_dim)).astype(
+            np.float32)
+    labels = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels[rng.random((b, s)) < 0.2] = -1
+    batch["labels"] = labels
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _rel(torch, got, want) -> float:
+    scale = float(want.abs().max())
+    return float((got.double() - want.double()).abs().max()) / scale if scale else \
+        float(got.abs().max())
+
+
+def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
+    """The port's LM training stack on the card (the ``lm_train*`` lines):
+    gemma-2b at its published configuration trained through the driver,
+    ``repro_torch.launch.train.main``: (a) 8 steps, timed; (b) 6 steps, a
+    SIGTERM, a rerun that resumes to step 8, bitwise the uninterrupted run;
+    (c) a step with ``--compress-pod-grads``, the card's int8 round trip of a
+    gradient leaf bitwise the CPU's; (d) every smoke config's train step,
+    and gemma-2b at one layer in bf16, card against CPU; (e) ``moe_fwd_a2a``
+    and ``embedding_gather`` through NCCL at world size 1 against their
+    dense counterparts.  Runs no hand-written kernel."""
+    import gc
+    import shutil
+    import signal
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, lm_arch_names
+    from repro_torch.core.sensitivity import value_and_grad
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.embedding import embedding_gather
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_from_specs, tree_leaves, tree_map
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import compression as C
+    from repro_torch.training import lm as LM
+    from repro_torch.training.optimizer import Adam
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gb = 1024 ** 3
+    check(torch.cuda.memory_allocated() < gb, "lm_train: an earlier phase's tensors remain "
+          f"({torch.cuda.memory_allocated()} bytes)")
+    cfg = get_config(LM_ARCH)
+    n_params = T.param_count(cfg)
+    check(n_params == LM_PARAMS and cfg.remat and cfg.param_dtype == "bfloat16",
+          f"lm_train: {LM_ARCH} is not its published config")
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    LM_TRAIN_DIR.mkdir(parents=True)
+    disk = shutil.disk_usage(LM_TRAIN_DIR)
+    print(f"lm_train_disk {json.dumps({'total': disk.total, 'used': disk.used, 'free': disk.free})}")
+    sigterm = signal.getsignal(signal.SIGTERM)
+    probe = TrainProbe(torch, train, CK)
+    legs_s = {}
+
+    def run(name, **probe_kw):
+        probe.reset(**probe_kw)
+        with probe:
+            return train.main(LM_TRAIN_ARGS + ["--device", str(dev.type),
+                                               "--ckpt-dir", str(LM_TRAIN_DIR / name)])
+
+    ckpt_bytes = n_params * (2 + 4 + 4) + (1 << 20)  # bf16 params, fp32 moments, headers
+    check(disk.free > 1.1 * ckpt_bytes and ckpt_bytes < 0.8 * LM_TRAIN_WRITE_LIMIT,
+          f"lm_train: a {ckpt_bytes}-byte checkpoint does not fit ({disk.free} bytes free, "
+          f"{LM_TRAIN_WRITE_LIMIT} bytes of writes a run)")
+    bound = lm_train_bound(cfg, LM_TRAIN_TOKENS, n_params)
+
+    def timing(losses) -> dict:
+        ev, host = probe.step_ms()[1:], probe.host_ms[1:]  # step 1 pays the set-up
+        ms = statistics.median(ev)
+        return {"step_ms_events": ms, "step_ms_events_all": probe.step_ms(),
+                "step_ms_host": statistics.median(host),
+                "tokens_per_s": LM_TRAIN_TOKENS / (statistics.median(host) / 1e3),
+                "loss_first": losses[0], "loss_last": losses[-1], "losses": losses}
+
+    # (a) 8 uninterrupted steps as the driver runs them (nondeterministic
+    # algorithms allowed), timed; the driver's final save held in memory
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    losses_a = run("a", trace_call=LM_TRAIN_TRACE_CALL)
+    peak = torch.cuda.max_memory_allocated() / gb
+    check(len(losses_a) == LM_TRAIN_STEPS and all(np.isfinite(losses_a)),
+          f"lm_train: losses {losses_a}")
+    check(probe.trace is not None and probe.trace["ops"] > 0,
+          "lm_train: the traced step holds no device activity")
+    timed_a = timing(losses_a)
+    legs_s["a"] = time.perf_counter() - t0
+    print("lm_train " + json.dumps({
+        "arch": LM_ARCH, "params": n_params, "dtype": "bfloat16", "remat": cfg.remat,
+        "batch": 8, "seq": 128, "n_micro": 2, "steps": LM_TRAIN_STEPS, "deterministic": False,
+        **timed_a, "step_device_ms": probe.trace["ms"], "step_device_ops": probe.trace["ops"],
+        "step_device_top": probe.trace["top"],
+        "busy_share": probe.trace["ms"] / timed_a["step_ms_events"], "peak_gb": peak, **bound,
+        "bound_share": bound["bound_ms"] / timed_a["step_ms_events"],
+        "final_save": "held in host memory (leg (b) writes the phase's one checkpoint)",
+        "leg_s": legs_s["a"], "gpu": gpu_line}))
+
+    # (b) under deterministic algorithms: 8 uninterrupted steps (timed: what
+    # determinism costs the step), then 6 steps, SIGTERM (the preemption hook
+    # saves step 6 and exits 143), and a rerun that resumes from that
+    # checkpoint to step 8, bitwise the uninterrupted run
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses = run("b_ref", keep=LM_TRAIN_STEPS)
+        check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+              f"lm_train_resume: deterministic losses {losses}")
+        timed_b = timing(losses)
+        try:
+            try:
+                run("b", kill_after=LM_RESUME_AT, write=True)
+                check(False, "lm_train_resume: the driver ran on past its SIGTERM")
+            except SystemExit as exc:
+                check(exc.code == 143, f"lm_train_resume: exit {exc.code}, not 143")
+        finally:
+            signal.signal(signal.SIGTERM, sigterm)
+        saved = probe.emergency
+        (emergency,) = (LM_TRAIN_DIR / "b").glob("*/step_*/MANIFEST.json")
+        manifest = json.loads(emergency.read_text())
+        check(saved is not None and manifest["step"] == LM_RESUME_AT
+              and manifest["extra"] == {"emergency": True},
+              f"lm_train_resume: emergency checkpoint {manifest['step']} {manifest['extra']}")
+        t1 = time.perf_counter()
+        rest = run("b", compare=LM_TRAIN_STEPS)
+        resume_s, restore_s = time.perf_counter() - t1, probe.restore_s
+        signal.signal(signal.SIGTERM, sigterm)
+        check(rest == losses[LM_RESUME_AT:], f"lm_train_resume: steps 7-8 lost {rest} against "
+                                             f"{losses[LM_RESUME_AT:]}")
+        check(probe.final_equal is True, "lm_train_resume: the resumed run's final params and "
+                                         "moments differ from the uninterrupted run's")
+        legs_s["b"] = time.perf_counter() - t0
+        print("lm_train_resume " + json.dumps({
+            "deterministic": True, "resume_at": LM_RESUME_AT, "steps": LM_TRAIN_STEPS,
+            "cut": None, "uninterrupted": timed_b,
+            "step_ms_events_over_a": timed_b["step_ms_events"] / timed_a["step_ms_events"],
+            "loss_max_abs_vs_a": max(abs(x - y) for x, y in zip(losses, losses_a)),
+            "losses_7_8": rest, "equal_losses": True, "equal_final_state": True,
+            "checkpoint_bytes": saved["bytes"], "checkpoint_save_s": saved["s"],
+            "checkpoint_save_gb_per_s": saved["bytes"] / saved["s"] / 1e9,
+            "restore_s": restore_s, "resumed_run_s": resume_s, "leg_s": legs_s["b"],
+            "gpu": gpu_line}))
+        shutil.rmtree(LM_TRAIN_DIR / "b")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    probe.kept = None
+    gc.collect()
+
+    # (c) one step with --compress-pod-grads: one gradient leaf's int8 round
+    # trip on the card, bitwise the CPU's on the same gradient
+    t0 = time.perf_counter()
+    leaf = {}
+    compress_orig = LM.fake_compress_grads
+
+    def recording(grads, **kw):
+        g = grads["groups"]["pos0"]["attn"]["wq"]
+        leaf["in"] = g.detach().cpu().clone()
+        out = compress_orig(grads, **kw)
+        leaf["out"] = out["groups"]["pos0"]["attn"]["wq"].detach().cpu().clone()
+        leaf["kw"] = kw
+        return out
+
+    LM.fake_compress_grads = recording
+    try:
+        probe.reset()
+        with probe:
+            closs = train.main(LM_TRAIN_ARGS[:-2] + [
+                "--steps", "1", "--compress-pod-grads", "--device", str(dev.type),
+                "--ckpt-dir", str(LM_TRAIN_DIR / "c")])
+    finally:
+        LM.fake_compress_grads = compress_orig
+    check(len(closs) == 1 and np.isfinite(closs[0]), f"lm_train_compress: loss {closs}")
+    want_leaf = C.fake_compress_grads({"g": leaf["in"].clone()}, jitted=True)["g"]
+    check(leaf["kw"].get("jitted") is True and bool(torch.equal(
+        _bits(torch, leaf["out"]), _bits(torch, want_leaf))),
+        "lm_train_compress: the card's int8 round trip differs from the CPU's")
+    legs_s["c"] = time.perf_counter() - t0
+    print("lm_train_compress " + json.dumps({
+        "leaf": "groups/pos0/attn/wq", "shape": list(leaf["in"].shape), "loss": closs[0],
+        "changed_values": int((leaf["out"] != leaf["in"]).sum()),
+        "card_equals_cpu": True, "leg_s": legs_s["c"], "gpu": gpu_line}))
+    del leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) every smoke config's train step (fp32, n_micro 2) on the card
+    # against the CPU: the loss and the first moment (0.1 x the accumulated
+    # gradient), each leaf as max|card - CPU| over the leaf's max, the
+    # largest over the leaves within the larger of LM_CARD_CPU_TOL and
+    # LM_CARD_CPU_ULPS times the largest that a one-ulp weight nudge moves a
+    # leaf by on the CPU (the CPU tests' measure against JAX)
+    t0 = time.perf_counter()
+    opt = Adam(lr=1e-3, eps=1e-3, grad_clip_norm=None)
+
+    def one_step(c, params, batch):
+        step = LM.make_train_step(c, opt, LM.TrainSettings(n_micro=2))
+        _, o, m = step(params, opt.init(params), batch)
+        return float(m["loss"]), [(k, t.cpu()) for k, t in _flat_named(o.mu)]
+
+    card_cpu = {}
+    for arch in lm_arch_names():
+        scfg = get_config(arch).smoke()
+        p_cpu = T.init_params(0, scfg, device="cpu")
+        batch = lm_train_batch(np, torch, scfg, torch.device("cpu"), LM_TRAIN_B, LM_TRAIN_S)
+        gen = torch.Generator().manual_seed(SEED)
+        nudged = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+            t.shape, generator=gen).sign()), p_cpu)
+        want_loss, want_mu = one_step(scfg, p_cpu, batch)
+        n_loss, n_mu = one_step(scfg, nudged, batch)
+        got_loss, got_mu = one_step(scfg, T.params_to(p_cpu, dev),
+                                    {k: v.to(dev) for k, v in batch.items()})
+        errs = {k: _rel(torch, g, w) for (k, g), (_, w) in zip(got_mu, want_mu)}
+        nudge = max(_rel(torch, n, w) for (_, n), (_, w) in zip(n_mu, want_mu))
+        worst = max(errs, key=errs.get)
+        res = {"loss_rel": abs(got_loss - want_loss) / abs(want_loss),
+               "loss_nudge": abs(n_loss - want_loss) / abs(want_loss),
+               "grad_rel": errs[worst], "worst_leaf": worst, "grad_nudge": nudge}
+        res["loss_tol"] = max(LM_CARD_CPU_TOL, LM_CARD_CPU_ULPS * res["loss_nudge"])
+        res["grad_tol"] = max(LM_CARD_CPU_TOL, LM_CARD_CPU_ULPS * nudge)
+        card_cpu[arch] = res
+        check(res["loss_rel"] <= res["loss_tol"] and res["grad_rel"] <= res["grad_tol"],
+              f"lm_train_card_vs_cpu: {arch} {res}")
+    legs_s["d"] = time.perf_counter() - t0
+    print("lm_train_card_vs_cpu " + json.dumps({
+        "archs": card_cpu, "n_micro": 2, "rows": LM_TRAIN_B, "seq": LM_TRAIN_S,
+        "tol": LM_CARD_CPU_TOL, "ulps": LM_CARD_CPU_ULPS, "leg_s": legs_s["d"],
+        "gpu": gpu_line}))
+
+    # (d') gemma-2b at full width, one layer, bf16 as trained (remat on):
+    # loss_fn's gradients, card against CPU.  bf16 rounding dominates these
+    # gradients (the CPU's bf16 gradient of attn/wq is 8e4 times its fp32
+    # one's scale away from it), so each leaf's card-CPU distance is held to
+    # a fraction of the CPU's own distance from an fp32 computation on the
+    # same weights (LM_BF16_GRAD_NOISE); serving's relative limits are printed
+    t0 = time.perf_counter()
+    bcfg = get_config(LM_ARCH).replace(n_layers=1)
+    fcfg = bcfg.replace(param_dtype="float32", act_dtype="float32")
+    p_cpu = T.init_params(0, bcfg, device="cpu")
+    batch = lm_train_batch(np, torch, bcfg, torch.device("cpu"), 2, LM_TRAIN_S)
+    want_loss, want_g = value_and_grad(lambda p: T.loss_fn(p, batch, bcfg), p_cpu)
+    _, exact_g = value_and_grad(lambda p: T.loss_fn(p, batch, fcfg),
+                                T.params_from_numpy(T.params_to_numpy(p_cpu), fcfg))
+    p_dev, b_dev = T.params_to(p_cpu, dev), {k: v.to(dev) for k, v in batch.items()}
+    got_loss, got_g = value_and_grad(lambda p: T.loss_fn(p, b_dev, bcfg), p_dev)
+    bf16 = {"loss_rel": abs(float(got_loss) - float(want_loss)) / abs(float(want_loss)),
+            "leaves": {}}
+    for (key, w), (_, g), (_, e) in zip(_flat_named(want_g), _flat_named(got_g),
+                                        _flat_named(exact_g)):
+        w, g, e = w.float(), g.float().cpu(), e.float()
+        d, noise = (g - w).abs(), (w - e).abs()
+        res = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+               "noise_max": float(noise.max()), "noise_mean": float(noise.mean()),
+               "rel_max": float(d.max() / w.abs().max()),
+               "rel_mean": float(d.mean() / w.abs().mean())}
+        res["of_noise"] = [a / n if n else (0.0 if a == 0 else float("inf")) for a, n in (
+            (res["max_abs"], res["noise_max"]), (res["mean_abs"], res["noise_mean"]))]
+        bf16["leaves"][key] = res
+        check(res["of_noise"][0] <= LM_BF16_GRAD_NOISE["max"]
+              and res["of_noise"][1] <= LM_BF16_GRAD_NOISE["mean"],
+              f"lm_train_card_vs_cpu_bf16: {key} {res}")
+    check(bf16["loss_rel"] <= LM_BF16_REL["mean"], f"lm_train_card_vs_cpu_bf16: loss {bf16}")
+    del p_cpu, p_dev, want_g, got_g, exact_g
+    legs_s["d_bf16"] = time.perf_counter() - t0
+    print("lm_train_card_vs_cpu_bf16 " + json.dumps({
+        "arch": f"{LM_ARCH}:1-layer", **bf16, "noise_limits": LM_BF16_GRAD_NOISE,
+        "serving_rel_limits": LM_BF16_REL, "leg_s": legs_s["d_bf16"], "gpu": gpu_line}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the collectives through NCCL at world size 1: moe_fwd_a2a against
+    # moe_fwd (olmoe's published width, one layer, capacity factor 8, fp32)
+    # and embedding_gather against the plain gather (gemma-2b's table)
+    t0 = time.perf_counter()
+    dist.init_process_group(LM_TRAIN_BACKEND, init_method=f"file://{LM_TRAIN_DIR / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        rules = SH.ShardingRules(make_host_mesh(device=dev))
+        check(rules.group(("model",)) is not None, "lm_train_collectives: no process group")
+        mcfg = get_config("olmoe-1b-7b").replace(n_layers=1, capacity_factor=8.0,
+                                                 param_dtype="float32", act_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        mp = init_from_specs(gen, MOE.moe_specs(mcfg), mcfg)
+        x = torch.randn((2, LM_TRAIN_S, mcfg.d_model), generator=gen, device=dev)
+        out = {}
+        for name, fn, r in (("dense", MOE.moe_fwd, None), ("a2a", MOE.moe_fwd_a2a, rules)):
+            with SH.use_rules(r):
+                y, g = _value_and_grad_out(torch, lambda p: fn(p, x, mcfg), mp)
+            out[name] = (y, g)
+        fwd = max_abs(torch, out["a2a"][0], out["dense"][0])
+        grad = max(max_abs(torch, a, b) for a, b in zip(_tensors(out["a2a"][1]),
+                                                        _tensors(out["dense"][1])))
+        check(fwd < 2e-4 and grad < 1e-4, f"lm_train_collectives: a2a differs from dense by "
+                                          f"{fwd} (forward), {grad} (gradient)")
+        table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev)
+        ids = torch.randint(0, cfg.vocab, (2, LM_TRAIN_S), generator=gen, device=dev)
+        with SH.use_rules(rules):
+            gathered = embedding_gather(table, ids)
+        check(bitwise(torch, gathered, table[ids.long()]),
+              "lm_train_collectives: embedding_gather differs from the plain gather")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    legs_s["e"] = time.perf_counter() - t0
+    print("lm_train_collectives " + json.dumps({
+        "backend": backend, "world_size": 1, "moe_arch": "olmoe-1b-7b:1-layer",
+        "moe_fwd_max_abs": fwd, "moe_grad_max_abs": grad, "moe_tol": [2e-4, 1e-4],
+        "gather_bitwise": True, "vocab": cfg.vocab, "leg_s": legs_s["e"], "gpu": gpu_line}))
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    print("lm_train_phase " + json.dumps({"phase_s": time.perf_counter() - t_phase,
+                                          "legs_s": legs_s, "gpu": gpu_line}))
+    return {}
+
+
+def _value_and_grad_out(torch, fn, params):
+    """``fn(params)`` and the gradients of its sum with respect to every
+    leaf of ``params``."""
+    from repro_torch.core.sensitivity import value_and_grad
+
+    holder = {}
+
+    def loss(p):
+        holder["y"] = fn(p)
+        return holder["y"].sum()
+
+    _, grads = value_and_grad(loss, params)
+    return holder["y"].detach(), grads
+
+
 #: K1's and K2's layers at 8 slots, (kernel, shape) as _qmm_case / _conv_case
 #: take them, and the front-end primitives' shapes
 COMPARE_LAYERS = {
@@ -2823,7 +3385,11 @@ def compare_phase(parent: Path, gpu_line: str) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     import argparse
+    import os
 
+    # cuBLAS reproducible under torch.use_deterministic_algorithms (phase 10);
+    # read when cuBLAS starts, so set before any CUDA work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
@@ -2877,6 +3443,7 @@ def main(argv: list[str] | None = None) -> int:
         sweep_phase(torch, dev, gpu_line)
         add(training_phase(torch, np, dev, gpu_line))
         add(lm_phase(torch, np, dev, gpu_line))
+        add(lm_train_phase(torch, np, dev, gpu_line))
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)
         for name in kernels:

@@ -3,11 +3,13 @@
 
 The port's own copy of ``repro/configs/base.py``, field for field, so that a
 config compares equal with the reference's.  Some fields only steer the
-reference's XLA program and change nothing here: ``remat`` (rematerialised
-scan bodies), ``stack_mode`` (``"scan"`` and ``"unroll"`` are one loop over
-the stacked groups in the port), ``unroll_attn`` (the KV-chunk loop is a
-Python loop either way), and ``sharded_embed_gather`` and ``moe_impl="a2a"``
-(multi-device paths, which raise until the training slice ports them)."""
+reference's XLA program and change no value here: ``remat`` (each group
+recomputed in the backward pass, ``torch.utils.checkpoint``),
+``stack_mode`` (``"scan"`` and ``"unroll"`` are one loop over the stacked
+groups in the port) and ``unroll_attn`` (the KV-chunk loop is a Python loop
+either way); ``sharded_embed_gather`` and ``moe_impl="a2a"`` pick the
+vocab-parallel gather and the expert-parallel MoE, which run collectives
+when sharding rules over several ranks are active."""
 from __future__ import annotations
 
 import dataclasses

@@ -22,8 +22,8 @@ rounds at the same points; the products themselves come from another BLAS
 and agree within a tolerance, not bitwise.  ``jax.nn.gelu`` is the tanh
 approximation, so every GELU here is ``approximate="tanh"``.  The
 reference's sharding annotations (``constrain``, ``kv_seq_axis``) are
-identities on one device with no rules active and are left out; the
-multi-device rules come with the training slice.
+left out: the port places tensors by process group, and
+``distributed/sharding.constrain`` is an identity.
 """
 from __future__ import annotations
 

@@ -18,10 +18,13 @@ Two places where the obvious PyTorch call differs from the reference:
   (``index_put_(..., accumulate=True)``), so a dropped zero never
   overwrites that slot's real writer.
 
-Only the ``"dense"`` implementation is ported; the expert-parallel
-``"a2a"`` path (``shard_map`` + ``all_to_all``) belongs to the training
-slice and raises here.
+``moe_fwd_a2a`` is the expert-parallel path (the reference's ``shard_map``
++ ``all_to_all``): each rank of the ``"model"`` axis routes its share of
+the tokens, sends them to the ranks that hold their experts with one
+``all_to_all`` and takes the results back with another, all with autograd
+(``distributed/sharding.py``'s collectives over process groups).
 """
+
 from __future__ import annotations
 
 import math
@@ -30,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import PSpec, qeinsum, rmsnorm, rmsnorm_specs
+from repro_torch.distributed import sharding as SH
+from repro_torch.models.layers import PSpec, dequantize_as, qeinsum, rmsnorm, rmsnorm_specs
 
 
 def moe_specs(cfg: ArchConfig) -> dict:
@@ -61,8 +65,16 @@ def route(ht: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     logits = torch.einsum("td,de->te", ht.to(torch.float32), router)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, cfg.top_k)  # (T, k)
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    gate_vals = gate_vals / _renorm_floor(gate_vals)
     return logits, gate_vals, gate_idx
+
+
+def _renorm_floor(gv: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(gv.sum(-1, keepdims=True), 1e-9)``: ``torch.maximum``
+    splits a tie's gradient as ``jnp.maximum`` does (``clamp_min`` would
+    not)."""
+    return torch.maximum(gv.sum(-1, keepdim=True),
+                         torch.tensor(1e-9, dtype=gv.dtype, device=gv.device))
 
 
 def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -104,12 +116,95 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x + y
 
 
+def moe_fwd_a2a(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Expert-parallel MoE: tokens split over the batch axes and
+    ``"model"``, routed with ``all_to_all`` to the ranks that hold their
+    experts and back.
+
+    ``x`` is this rank's rows of the batch (every rank of the ``"model"``
+    axis holds the same rows, and every rank the whole weights).  Rank
+    ``r`` of ``"model"`` takes the ``r``-th of its rows' ``t_loc``-token
+    slices, routes them with the reference's local capacity
+    ``max(8, ceil8(t_loc * k / e * cf))``, packs a ``(n_ep, e_loc, cap,
+    d)`` send buffer, runs its ``e_loc`` resident experts on what it
+    receives, and reverses the route; the ranks' outputs are then gathered
+    back into every rank's rows.  The replicated inputs (the normed tokens,
+    router and expert weights) enter through ``copy_to``, so their
+    gradients are summed over ``"model"`` as ``shard_map`` sums a
+    replicated input's.
+
+    Falls back to ``moe_fwd`` as the reference does: no rules active, no
+    ``"model"`` axis, ``e % n_ep``, or the global token count not divisible
+    by the token shards.
+    """
+    rules = SH.active_rules()
+    if rules is None or "model" not in rules.axis_names:
+        return moe_fwd(p, x, cfg)
+    shape = rules.shape
+    n_ep = shape["model"]
+    e, k = cfg.n_experts, cfg.top_k
+    if e % n_ep != 0:
+        return moe_fwd(p, x, cfg)
+    b, s, d = x.shape
+    batch_axes = rules.mesh_axes_for("batch")
+    tok_axes = tuple(a for a in (*batch_axes, "model") if a in rules.axis_names)
+    n_tok_shards = rules.size(tok_axes)
+    t = b * s * rules.size(batch_axes)  # the global token count the reference sees
+    if t % n_tok_shards != 0:
+        return moe_fwd(p, x, cfg)
+    t_loc = t // n_tok_shards
+    cap = max(8, -(-int(t_loc * k / e * cfg.capacity_factor) // 8) * 8)
+    e_loc = e // n_ep
+
+    group = rules.group(("model",))
+    r = rules.axis_index(("model",))
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    ht = SH.copy_to(h.reshape(b * s, d), group)[r * t_loc:(r + 1) * t_loc]
+    router = SH.copy_to(p["router"], group)
+    wi_g, wi_u, wo = (SH.copy_to(_deq(p[n]), group)[r * e_loc:(r + 1) * e_loc]
+                      for n in ("wi_gate", "wi_up", "wo"))
+
+    logits = torch.einsum("td,de->te", ht.to(torch.float32), router)
+    probs = torch.softmax(logits, dim=-1)
+    gv, gi = top_k(probs, k)  # (t_loc, k)
+    gv = gv / _renorm_floor(gv)
+    oh = F.one_hot(gi, e).to(torch.int32).reshape(t_loc * k, e)
+    pos = torch.cumsum(oh, dim=0, dtype=torch.int32) - oh
+    pos = (pos * oh).sum(-1).reshape(t_loc, k)
+    keep = pos < cap
+    ef = torch.where(keep, gi, e - 1).reshape(-1)
+    pf = torch.where(keep, pos, cap - 1).reshape(-1).to(torch.long)
+    zero = torch.zeros((), dtype=ht.dtype, device=ht.device)
+    src = torch.where(keep.reshape(-1, 1), ht[torch.arange(t_loc, device=ht.device)
+                                             .repeat_interleave(k)], zero)
+    send = torch.zeros((e, cap, d), dtype=ht.dtype, device=ht.device)
+    send = send.index_put((ef, pf), src, accumulate=True)
+    # route: (e, cap, d) -> (n_ep, e_loc, cap, d) -> all_to_all over model
+    recv = SH.all_to_all(send.reshape(n_ep, e_loc, cap, d), group)
+    # recv: (n_ep senders, e_loc, cap, d) for this rank's resident experts
+    buf = recv.permute(1, 0, 2, 3).reshape(e_loc, n_ep * cap, d)  # slots = (sender, cap)
+    g = F.silu(torch.einsum("ecd,edf->ecf", buf, wi_g))
+    u = torch.einsum("ecd,edf->ecf", buf, wi_u)
+    eo = torch.einsum("ecf,efd->ecd", g * u, wo)  # (e_loc, slots, d)
+    back = eo.permute(1, 0, 2).reshape(n_ep, cap, e_loc, d).permute(0, 2, 1, 3)
+    out = SH.all_to_all(back.contiguous(), group).reshape(e, cap, d)
+    got = out[ef, pf].reshape(t_loc, k, d)
+    got = torch.where(keep[..., None], got, zero.to(got.dtype))
+    y = (got * gv[..., None].to(got.dtype)).sum(dim=1)
+    y = SH.gather_from(y, group)  # every rank's t_loc tokens, in rank order
+    return (x.reshape(b * s, d) + y.to(x.dtype)).reshape(b, s, d)
+
+
+def _deq(w):
+    """The reference's ``_deq``: an int8 ``QTensor`` as bf16, payload times
+    scale; float weights as they are."""
+    return dequantize_as(w, torch.bfloat16)
+
+
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Dispatch on ``cfg.moe_impl``."""
     if cfg.moe_impl == "a2a":
-        raise NotImplementedError(
-            "moe_impl='a2a' (expert-parallel all-to-all) is ported with the LM "
-            "training slice; use moe_impl='dense'")
+        return moe_fwd_a2a(p, x, cfg)
     return moe_fwd(p, x, cfg)
 
 

@@ -13,10 +13,15 @@ Entry points:
   forward(params, batch, cfg)                   full-seq logits (encoder too)
   forward_with_cache(params, batch, cfg, L)     prefill -> (last_logits, caches)
   decode_step(params, token, caches, pos, cfg, L)  single-token serve step
+  loss_fn(params, batch, cfg)                   causal-LM / framewise cross entropy
+  abstract_params / logical_axes                specs on the ``meta`` device, axis names
   params_from_numpy / params_to_numpy           the weight carry between packages
 
-The training half (``loss_fn``, the vocab-parallel embedding gather of
-``sharded_embed_gather=True``) comes with the LM training slice.
+``cfg.remat`` recomputes each pattern group in the backward pass
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint(nothing_saveable)`` on its scan body): only the group's
+input is kept; the recomputation runs the same ops on the same inputs, so
+it changes no value.
 """
 from __future__ import annotations
 
@@ -25,9 +30,11 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.distributed.embedding import embedding_gather
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -88,6 +95,20 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return L.init_from_specs(gen, build_specs(cfg), cfg)
+
+
+def abstract_params(cfg: ArchConfig):
+    """The params tree as tensors on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    return L.tree_map(
+        lambda s: torch.empty(s.shape, dtype=L.torch_dtype(s.dtype or cfg.param_dtype),
+                              device="meta"),
+        build_specs(cfg))
+
+
+def logical_axes(cfg: ArchConfig):
+    """The params tree with each leaf's logical axis names."""
+    return L.tree_map(lambda s: s.logical, build_specs(cfg))
 
 
 def param_count(cfg: ArchConfig) -> int:
@@ -171,12 +192,11 @@ def embed_fwd(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
         h = L.qeinsum("bsf,fd->bsd", batch["frames"].to(act), params["frontend"]["proj"])
         h = L.rmsnorm(params["frontend"]["norm"], h, cfg.norm_eps)
     else:
-        if cfg.sharded_embed_gather:
-            raise NotImplementedError(
-                "sharded_embed_gather (vocab-parallel gather) is ported with the LM "
-                "training slice")
         table = params["embed"]["tok"]
-        tok = table[batch["tokens"].to(device=table.device, dtype=torch.long)]
+        if cfg.sharded_embed_gather:
+            tok = embedding_gather(table, batch["tokens"])
+        else:
+            tok = table[batch["tokens"].to(device=table.device, dtype=torch.long)]
         if cfg.scale_embed:
             tok = tok * torch.tensor(np.sqrt(cfg.d_model), dtype=tok.dtype, device=tok.device)
         h = tok
@@ -290,16 +310,29 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def run_stack(params, x, cfg: ArchConfig, cache_len: Optional[int] = None):
-    shared = params.get("shared")
-    caches_list = []
-    for gi in range(cfg.n_groups):
-        gp = _group(params["groups"], gi)
+def _group_fwd(cfg: ArchConfig, shared, cache_len):
+    def body(gp, x):
         caches = {}
         for i, kind in enumerate(cfg.pattern):
             x, c = block_fwd(kind, gp[f"pos{i}"], x, cfg, shared, cache_len)
             if cache_len is not None:
                 caches[f"pos{i}"] = c if c is not None else {}
+        return x, caches
+
+    return body
+
+
+def run_stack(params, x, cfg: ArchConfig, cache_len: Optional[int] = None):
+    shared = params.get("shared")
+    body = _group_fwd(cfg, shared, cache_len)
+    remat = cfg.remat and cache_len is None and torch.is_grad_enabled()
+    caches_list = []
+    for gi in range(cfg.n_groups):
+        gp = _group(params["groups"], gi)
+        if remat:
+            x, caches = checkpoint(body, gp, x, use_reentrant=False)
+        else:
+            x, caches = body(gp, x)
         caches_list.append(caches)
     return x, (_stack(caches_list) if cache_len is not None else None)
 
@@ -372,3 +405,29 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
         elif kind == "rwkv6":
             group[f"pos{i}"] = R6.rwkv6_state_shapes(cfg, batch)
     return L.tree_map(lambda s: ((cfg.n_groups,) + s[0], s[1]), group)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, *,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal-LM (or framewise, for encoders) cross entropy.  Labels of -1
+    are masked; for ``vision_patches`` the loss runs over the text
+    positions.  ``count``, when given, replaces the number of unmasked
+    labels as the divisor: a rank holding part of a global batch divides
+    its sum by the global count, so the ranks' losses (and gradients) add
+    up to the whole batch's."""
+    logits = forward(params, batch, cfg)
+    labels = batch["labels"].to(device=logits.device, dtype=torch.long)
+    if cfg.frontend == "vision_patches":
+        logits = logits[:, -labels.shape[1]:]  # loss over the text positions
+    mask = labels >= 0
+    labels_safe = torch.clamp_min(labels, 0)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    if count is None:
+        count = mask.sum()
+    return -(ll * mask).sum() / torch.clamp_min(count, 1).to(torch.float32)

@@ -14,6 +14,11 @@ checkpoint written by either package restores in the other.
   ``device`` (``"cuda"`` by default; without a GPU that raises unless
   ``device="cpu"``).  The reference's ``shardings=`` (placement onto a
   mesh) has no counterpart on one card; ``device=`` takes its place.
+* **bf16 leaves**: numpy has no bfloat16, so a bf16 leaf is written as its
+  raw bits, a 2-byte void array (the bytes JAX writes for one), with the
+  manifest dtype ``"bfloat16"``; a leaf whose manifest says ``"bfloat16"``
+  is read back by those bits.  (The reference writes such leaves but
+  cannot read them back itself: ``jnp.asarray`` refuses the void array.)
 * **Retention and preemption**: ``CheckpointManager`` keeps the last
   ``keep`` checkpoints, resumes from the newest (``maybe_restore``), and
   can save on SIGTERM.
@@ -70,10 +75,29 @@ def _unflatten_like(tree, leaves):
     return next(leaves)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+#: numpy's view of a bf16 leaf: its raw 2-byte words
+BF16_VOID = np.dtype("V2")
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """The array to write and the manifest's dtype name."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_VOID), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    # ``ascontiguousarray`` makes a 0-d array 1-d: reshape it back (an
+    # optimizer's step counter is a scalar)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save_checkpoint(directory: str | Path, step: int, tree: Any, *,
@@ -87,11 +111,11 @@ def save_checkpoint(directory: str | Path, step: int, tree: Any, *,
     manifest = {"step": step, "time": time.time(), "extra": extra or {}, "leaves": []}
     try:
         for i, (key, leaf) in enumerate(_flatten_with_paths(tree)):
-            arr = _to_numpy(leaf)
+            arr, dtype = _to_numpy(leaf)
             fname = f"leaf_{i:05d}.npy"
             np.save(tmp / fname, arr)
             manifest["leaves"].append(
-                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": dtype}
             )
         (tmp / "MANIFEST.json").write_text(json.dumps(manifest, indent=1))
         if final.exists():
@@ -128,7 +152,7 @@ def restore_checkpoint(path: str | Path, tree_like: Any, *, device="cuda") -> tu
         expected = tuple(getattr(leaf, "shape", arr.shape))
         if tuple(arr.shape) != expected:
             raise ValueError(f"leaf {key}: ckpt shape {arr.shape} != expected {expected}")
-        leaves.append(torch.from_numpy(np.ascontiguousarray(arr)).to(dev))
+        leaves.append(_from_numpy(arr, entry["dtype"]).to(dev))
     return manifest["step"], _unflatten_like(tree_like, iter(leaves))
 
 

@@ -5,7 +5,14 @@ mirroring the params tree, and :meth:`Adam.update` is functional (new
 params and state out), as the reference's is.  The bias corrections are
 computed from the step as a float32 tensor (the jitted reference traces
 ``t``), not in Python's float64 ``b1 ** t``; the constants are float32
-tensors on the params' device.
+tensors on the params' device.  Leaves are walked in the trees' insertion
+order.  The reference's ``jax.tree_util`` walks sorted keys; the LM params
+are built in sorted-key order (``layers.init_from_specs``), so their global
+norm sums in the reference's order, while the detector's (``w``, ``b``,
+``alpha`` a layer) keep the order its seeded training was calibrated with.
+The update works leaf by leaf (clip, moments, step), so beyond the new
+params and moments it holds one leaf's temporaries, never a clipped copy
+of the whole gradient tree.
 """
 from __future__ import annotations
 
@@ -65,17 +72,15 @@ class Adam:
 
     @torch.no_grad()
     def update(self, grads, state: AdamState, params):
-        """Returns (new_params, new_state)."""
+        """Returns (new_params, new_state); the inputs are left as they were."""
+        scale = None
         if self.grad_clip_norm is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp_max(_f32(self.grad_clip_norm, gnorm) / (gnorm + 1e-9), 1.0)
-            grads = _map(lambda g: g * scale, grads)
         step = state.step + 1
         like = state.step
         b1, b2 = _f32(self.b1, like), _f32(self.b2, like)
         c1, c2 = _f32(1 - self.b1, like), _f32(1 - self.b2, like)
-        mu = _map(lambda m, g: b1 * m + c1 * g.to(torch.float32), state.mu, grads)
-        nu = _map(lambda v, g: b2 * v + c2 * torch.square(g.to(torch.float32)), state.nu, grads)
         t = step.to(torch.float32)
         one = _f32(1.0, like)
         mhat_scale = one / (one - torch.pow(b1, t))
@@ -83,14 +88,20 @@ class Adam:
         lr = self._lr(step)
         eps = _f32(self.eps, like)
 
-        def upd(p, m, v):
+        def leaf(p, m, v, g):
+            if scale is not None:
+                g = g * scale
+            g = g.to(torch.float32)
+            m = b1 * m + c1 * g
+            v = b2 * v + c2 * torch.square(g)
             delta = lr * (m * mhat_scale) / (torch.sqrt(v * vhat_scale) + eps)
             if self.weight_decay:
                 delta = delta + lr * self.weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - delta).to(p.dtype)
+            return (p.to(torch.float32) - delta).to(p.dtype), m, v
 
-        new_params = _map(upd, params, mu, nu)
-        return new_params, AdamState(step=step, mu=mu, nu=nu)
+        out = _map(leaf, params, state.mu, state.nu, grads)
+        part = lambda i: _map(lambda o: o[i], out)  # noqa: E731
+        return part(0), AdamState(step=step, mu=part(1), nu=part(2))
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -311,9 +311,15 @@ def test_moe_with_tied_router_matches_reference():
 
 
 def test_moe_a2a_raises_and_load_balance_loss_matches_reference():
-    jcfg, tcfg = moe_cfgs()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TMOE.moe_block({}, torch.zeros(1, 1, 32), tcfg.replace(moe_impl="a2a"))
+    """``moe_impl="a2a"`` no longer raises (ported with the training
+    slice): with no sharding rules active it falls back to the dense MoE,
+    as the reference's does, and matches the reference's ``moe_block``."""
+    jcfg, tcfg = moe_cfgs(moe_impl="a2a")
+    jp, tp = params(TMOE.moe_specs, jcfg, tcfg)
+    x = rand((4, 16, 32), 14)
+    got = TMOE.moe_block(tp, torch.from_numpy(x), tcfg)
+    assert torch.equal(got, TMOE.moe_fwd(tp, torch.from_numpy(x), tcfg))
+    close(got, JMOE.moe_block(jp, jnp.asarray(x), jcfg))
     rng = np.random.default_rng(15)
     logits = rng.standard_normal((64, 4)).astype(np.float32)
     idx = rng.integers(0, 4, (64, 2))

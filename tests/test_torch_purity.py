@@ -24,7 +24,7 @@ PKG = ROOT / "src" / "repro_torch"
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "repro")
+BLOCKED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -37,6 +37,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.training.lm",
+        "repro_torch.training.compression", "repro_torch.data.pipeline",
+        "repro_torch.distributed.embedding"} <= set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
@@ -54,11 +57,12 @@ def test_port_imports_without_jax_or_repro():
         cwd=ROOT,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 18  # every module walked
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 50  # every module walked
 
 
 def test_no_jax_or_repro_import_statements():
-    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|repro|ml_dtypes)\b|from\s+(jax|repro|ml_dtypes)(\.|\s))", re.M)
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
@@ -132,3 +136,20 @@ def test_lm_entry_points_raise_without_gpu_by_default(no_card):
     done = serve.BatchedServer(cfg, params, device="cpu").serve(
         [serve.Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=2)])
     assert len(done[0].out) == 2
+
+
+def test_lm_training_entry_points_raise_without_gpu_by_default(no_card):
+    from repro_torch.data.pipeline import PrefetchingLoader
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    for call in (
+        lambda: train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"]),
+        lambda: make_host_mesh(),
+        lambda: PrefetchingLoader(lambda step: None),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for the CPU, each runs
+    assert make_host_mesh(device="cpu").shape == {"data": 1, "model": 1}
+    assert list(PrefetchingLoader(lambda step: None, device="cpu")) == []
