@@ -163,6 +163,18 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    layer) and ``embedding_gather`` against the plain gather, through NCCL
    at world size 1 (``lm_train_collectives``).
 
+11. the dry run (``dryrun_phase``), after phase 10: ``repro_torch.launch.dryrun``
+   traces gemma-2b's train step as phase 10 runs it (8 x 128 tokens, two
+   microbatches, remat) and its decode step as phase 9 serves it (4 slots,
+   256 positions) on fake tensors on the card's device, and each step then
+   runs once for real (``dryrun_card_checks``, in a child process with a
+   fresh CUDA context): the FLOPs ``FlopCounterMode`` counts on the card
+   must equal the fake trace's, and the predicted peak must lie within
+   ``DRYRUN_PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` over the step;
+   the roofline bound is printed beside phase 10's step time
+   (``dryrun_train``, ``dryrun_decode``); then gemma-2b x decode_32k on the
+   256-rank production mesh runs in a child process (``dryrun_mesh``).
+
 With ``--parent DIR``, K1's
 and K2's device time at every serving layer, and ``project_rows``'s and
 ``row_sum``'s at the mfcc20 block's and the float layers' shapes, is
@@ -188,14 +200,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (the front-end's bound)
+if str(SRC) not in sys.path:
+    sys.path.insert(0, str(SRC))
+try:
+    # the H100 SXM5 80 GB's peaks, in one place (fp32: the front-end's bound)
+    from repro_torch.launch.hw import BF16_FLOPS_PER_S as BF16_OPS_PER_S
+    from repro_torch.launch.hw import FP32_FLOPS_PER_S as FP32_OPS_PER_S
+    from repro_torch.launch.hw import HBM_BYTES_PER_S, INT8_OPS_PER_S
+except ImportError:
+    sys.exit(f"chip_smoke: FAIL: {SRC / 'repro_torch'} not found beside chip_smoke.py")
 #: Hopper SM, per cycle: INT32 results (16 lanes in each of 4 sub-partitions)
 #: and issued thread-instructions (one warp instruction per sub-partition)
 INT32_LANES_PER_SM = 64
 ISSUE_LANES_PER_SM = 128
 SEED = 20261016
+#: numbers a later phase reads (phase 11 prints phase 10's step time)
+PHASE_RESULTS: dict = {}
 N_STREAMS, SECONDS, SLOTS = 8, 4.0, 8
 MIXED_POLICY = "conv0/w=bf16,dense1/w=fp32"
 
@@ -2691,7 +2711,6 @@ LM_TRAIN_BACKEND = "nccl"
 #: hold for gradients: the sound card reads up to 2.05 % of a leaf's mean
 #: (attn/wq) against 1.75 %
 LM_BF16_GRAD_NOISE = {"max": 0.2, "mean": 0.16}
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 #: the phase's checkpoints (inside the checkout, gitignored)
 LM_TRAIN_DIR = ROOT / "build" / "lm_train"
 
@@ -2955,6 +2974,7 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
     check(probe.trace is not None and probe.trace["ops"] > 0,
           "lm_train: the traced step holds no device activity")
     timed_a = timing(losses_a)
+    PHASE_RESULTS["lm_train_step_ms"] = timed_a["step_ms_events"]
     legs_s["a"] = time.perf_counter() - t0
     print("lm_train " + json.dumps({
         "arch": LM_ARCH, "params": n_params, "dtype": "bfloat16", "remat": cfg.remat,
@@ -3039,6 +3059,9 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
                 "--ckpt-dir", str(LM_TRAIN_DIR / "c")])
     finally:
         LM.fake_compress_grads = compress_orig
+        # the driver's SIGTERM hook holds its last state (params and Adam
+        # states, 25 GB) for as long as it stays installed
+        signal.signal(signal.SIGTERM, sigterm)
     check(len(closs) == 1 and np.isfinite(closs[0]), f"lm_train_compress: loss {closs}")
     want_leaf = C.fake_compress_grads({"g": leaf["in"].clone()}, jitted=True)["g"]
     check(leaf["kw"].get("jitted") is True and bool(torch.equal(
@@ -3179,6 +3202,189 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
     print("lm_train_phase " + json.dumps({"phase_s": time.perf_counter() - t_phase,
                                           "legs_s": legs_s, "gpu": gpu_line}))
     return {}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dry run's predictions against the card
+# ---------------------------------------------------------------------------
+
+#: phase 9's serving cell: 4 slots, 256 positions (one decode step)
+DRYRUN_DECODE_SLOTS, DRYRUN_DECODE_SEQ = 4, 256
+#: the predicted peak against ``torch.cuda.max_memory_allocated`` over a step
+DRYRUN_PEAK_TOL = 0.10
+#: the production-mesh cell, run in a child process (this one may hold a
+#: real process group from phase 10's collectives leg)
+DRYRUN_MESH_CELL = ("gemma-2b", "decode_32k", "single")
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+
+
+def _dryrun_check(torch, dev, cfg, shape, n_micro, real_args) -> dict:
+    """One cell at world size 1: the dry run's trace of its step on fake
+    tensors on ``dev`` beside the same step run once on the card on
+    ``real_args(fn)`` (real params, a valid batch), under
+    ``FlopCounterMode``, its peak read by ``max_memory_allocated`` over the
+    step less what was allocated before its arguments were made."""
+    import gc
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed.sharding import HostMesh, ShardingRules, use_rules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline
+
+    rules = ShardingRules(HostMesh(("data", "model")))
+    t0 = time.perf_counter()
+    pred = D.trace_cell(cfg, shape, rules, n_micro, device=dev)
+    trace_s = time.perf_counter() - t0
+    with FakeTensorMode():
+        fn, _ = D.build_cell(cfg, shape, rules, n_micro, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = real_args(fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flops = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with use_rules(rules), flops:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = {"pred_peak_bytes": pred["memory"]["peak_bytes"], "card_peak_bytes": peak,
+           "pred_argument_bytes": pred["memory"]["argument_bytes"],
+           "peak_rel_err": (pred["memory"]["peak_bytes"] - peak) / peak,
+           "pred_flops": pred["flops_per_device"], "card_flops": float(flops.get_total_flops()),
+           "pred_bytes": pred["bytes_per_device"], "trace_s": trace_s,
+           "card_step_s_with_counter": step_s,
+           "roofline": roofline.terms(pred["flops_per_device"], pred["bytes_per_device"],
+                                      pred["collectives"]["total_bytes"])}
+    check(got["card_flops"] == got["pred_flops"],
+          f"dryrun: {shape.name}: the card's FLOPs {got['card_flops']} differ from the fake "
+          f"trace's {got['pred_flops']}: the fake path is not the card's")
+    check(abs(got["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
+          f"dryrun: {shape.name}: predicted peak {got['pred_peak_bytes']} is "
+          f"{got['peak_rel_err']:+.3f} of the card's {peak}")
+    return got
+
+
+def dryrun_card_checks(device: str = "cuda") -> None:
+    """Phase 11's card checks, run in a process of their own (a fresh CUDA
+    context: the earlier phases leave allocations and cached blocks behind):
+    gemma-2b's train step as phase 10 runs it (8 x 128 tokens, two
+    microbatches, remat) and its decode step as phase 9 serves it (4 slots,
+    256 positions), each traced on fake tensors and run once for real,
+    FLOPs equal and peaks within ``DRYRUN_PEAK_TOL`` or the process fails;
+    prints the ``dryrun_checks`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import Adam
+
+    dev = torch.device(device)
+    cfg = get_config(LM_ARCH)
+    check(T.param_count(cfg) == LM_PARAMS and cfg.remat, f"dryrun: {LM_ARCH} is not its "
+                                                         "published config")
+
+    def train_args(fn):
+        params = T.init_params(0, cfg, device=dev)
+        batch = lm_train_batch(np, torch, cfg, dev, 8, 128)
+        return params, Adam(lr=1e-4).init(params), batch
+
+    def decode_args(fn):
+        params = T.init_params(0, cfg, device=dev)
+        caches = _cache_zeros(torch, T, cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        token = torch.randint(0, cfg.vocab, (DRYRUN_DECODE_SLOTS, 1), generator=gen,
+                              device=dev, dtype=torch.int32)
+        return params, token, caches, DRYRUN_DECODE_SEQ - 1
+
+    train = _dryrun_check(torch, dev, cfg, ShapeSpec("lm_train_gemma2b", 128, 8, "train"), 2,
+                          train_args)
+    decode = _dryrun_check(torch, dev, cfg, ShapeSpec(
+        "lm_gemma2b_decode", DRYRUN_DECODE_SEQ, DRYRUN_DECODE_SLOTS, "decode"), 1, decode_args)
+    print("dryrun_checks " + json.dumps({
+        "train": train, "decode": decode,
+        "card_total_memory": torch.cuda.get_device_properties(dev).total_memory}))
+
+
+def _child(code: str, what: str, marker: str | None = None):
+    """Run ``code`` in a fresh interpreter beside this checkout; a failure
+    fails the phase.  Returns the JSON after ``marker`` on its stdout."""
+    import os
+
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(proc.returncode == 0, f"dryrun: {what} failed: {proc.stdout[-1500:]} "
+                                f"{proc.stderr[-2500:]}")
+    if marker is None:
+        return None
+    (line,) = [ln for ln in proc.stdout.splitlines() if ln.startswith(marker + " ")]
+    return json.loads(line[len(marker) + 1:])
+
+
+def dryrun_phase(torch, np, dev, gpu_line) -> None:
+    """The dry run (``repro_torch.launch.dryrun``) held against the card:
+    :func:`dryrun_card_checks` in a child process, its numbers printed
+    beside phase 10's step time; then one production-mesh cell, gemma-2b x
+    decode_32k x pod_16x16 at 256 fake ranks, in another child (a process
+    has one default process group, and phase 10's may be a real one) (the
+    ``dryrun_*`` lines).  Runs no hand-written kernel."""
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the child needs the card: hand back this process's cache
+    left = torch.cuda.memory_allocated()
+    got = _child(f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]; "
+                        f"import chip_smoke; chip_smoke.dryrun_card_checks({dev.type!r})",
+                 "the card checks", "dryrun_checks")
+    train, decode = got["train"], got["decode"]
+    step_ms = PHASE_RESULTS.get("lm_train_step_ms")
+    train["phase10_step_ms"] = step_ms
+    train["phase10_bound_share"] = (train["roofline"]["bound_s"] * 1e3 / step_ms
+                                    if step_ms else None)
+    print("dryrun_train " + json.dumps({
+        "arch": LM_ARCH, "batch": 8, "seq": 128, "n_micro": 2, "remat": True, **train,
+        "card_total_memory": got["card_total_memory"], "gpu": gpu_line}))
+    print("dryrun_decode " + json.dumps({"arch": LM_ARCH, "slots": DRYRUN_DECODE_SLOTS,
+                                         "positions": DRYRUN_DECODE_SEQ, **decode,
+                                         "gpu": gpu_line}))
+
+    arch, shape, mesh = DRYRUN_MESH_CELL
+    t0 = time.perf_counter()
+    _child(f"from repro_torch.launch import dryrun; dryrun.main(["
+                  f"'--arch', {arch!r}, '--shape', {shape!r}, '--mesh', {mesh!r}, "
+                  f"'--device', {dev.type!r}, '--out', {str(DRYRUN_DIR)!r}])",
+           f"the {arch} x {shape} cell")
+    (path,) = DRYRUN_DIR.glob(f"{arch}__{shape}__pod_16x16.json")
+    rec = json.loads(path.read_text())
+    check(rec["status"] == "ok" and rec["device"].startswith(dev.type),
+          f"dryrun: the {arch} x {shape} cell: {rec.get('status')} {rec.get('error')}")
+    rec.pop("fallbacks", None)
+    print("dryrun_mesh " + json.dumps({**rec, "child_s": time.perf_counter() - t0,
+                                       "gpu": gpu_line}))
+    print("dryrun_phase " + json.dumps({
+        "phase_s": time.perf_counter() - t_phase, "parent_allocated_bytes": left,
+        "parent_reserved_bytes": torch.cuda.memory_reserved(), "gpu": gpu_line}))
+
+
+def _cache_zeros(torch, T, cfg, dev) -> dict:
+    """Zero decode caches for ``DRYRUN_DECODE_SLOTS`` x ``DRYRUN_DECODE_SEQ``."""
+    def make(tree):
+        if isinstance(tree, dict):
+            return {k: make(v) for k, v in tree.items()}
+        shape, dtype = tree
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return make(T.cache_shapes(cfg, DRYRUN_DECODE_SLOTS, DRYRUN_DECODE_SEQ))
 
 
 def _value_and_grad_out(torch, fn, params):
@@ -3444,6 +3650,7 @@ def main(argv: list[str] | None = None) -> int:
         add(training_phase(torch, np, dev, gpu_line))
         add(lm_phase(torch, np, dev, gpu_line))
         add(lm_train_phase(torch, np, dev, gpu_line))
+        dryrun_phase(torch, np, dev, gpu_line)
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)
         for name in kernels:

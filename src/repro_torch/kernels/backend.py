@@ -29,6 +29,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -97,7 +98,12 @@ def resolve_device(device) -> torch.device:
 
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a CUDA device, False when every one is
-    on the CPU; mixed or other devices raise."""
+    on the CPU; mixed or other devices raise, and so does a fake tensor
+    (``FakeTensorMode``, the dry run): a kernel launched on one would read
+    a pointer to nothing, and its plain twin would hide that it was met."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError("a hand-written kernel was reached with a fake tensor "
+                           "(FakeTensorMode); it cannot be traced")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         if len({t.device for t in tensors}) != 1:

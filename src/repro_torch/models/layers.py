@@ -92,6 +92,18 @@ def init_from_specs(generator: torch.Generator, specs: Any, cfg: ArchConfig):
     return walk(specs)
 
 
+def abstract_from_specs(specs: Any, cfg: ArchConfig):
+    """A PSpec tree as tensors on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype or cfg.param_dtype),
+                                          device="meta"), specs)
+
+
+def logical_from_specs(specs: Any):
+    """A PSpec tree with each leaf's logical axis names."""
+    return tree_map(lambda s: s.logical, specs)
+
+
 def stack_specs(specs: Any, n: int, axis_name: str = "layers"):
     """Prepend a stacked 'layers' axis to every PSpec (groups of layers)."""
     return tree_map(lambda s: PSpec((n,) + s.shape, (axis_name,) + s.logical, s.init, s.dtype),

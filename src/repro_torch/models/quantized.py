@@ -87,3 +87,32 @@ def quantized_fraction(qparams) -> float:
         else:
             total += leaf.numel() * leaf.element_size()
     return q / max(total, 1)
+
+
+def abstract_quantized(aparams, logical, policy: PrecisionPolicy):
+    """The quantised model's abstract and logical trees, the reference's:
+    every matrix that ``policy`` puts at an 8-bit mode becomes a
+    ``QTensor`` of an int8 ``meta`` payload and an fp32 ``meta`` scale over
+    the last axis, whose logical axes are all ``None``; other leaves pass
+    through.  ``aparams`` is a tree of ``meta`` tensors
+    (``transformer.abstract_params``), ``logical`` its axis names.  These
+    scales are not :func:`quantize_lm_params`'s, which keep the stacked
+    layer axis (and the heads of ``wq``/``wk``/``wv``): a step over stacked
+    groups rejects them, in the reference's scan too, so the port's dry
+    run quantises its fake params with :func:`quantize_lm_params`."""
+    def walk(tree, ltree, path):
+        if isinstance(tree, Mapping):
+            out_a, out_l = {}, {}
+            for k in tree:
+                out_a[k], out_l[k] = walk(tree[k], ltree[k], f"{path}/{k}")
+            return out_a, out_l
+        nd = len(tree.shape)
+        if nd >= 2 and policy.precision_for(path) in (Precision.INT8, Precision.FXP8):
+            scale_shape = tuple(tree.shape[-1] if i == nd - 1 else 1 for i in range(nd))
+            qt = QTensor(q=torch.empty(tree.shape, dtype=torch.int8, device="meta"),
+                         scale=torch.empty(scale_shape, dtype=torch.float32, device="meta"),
+                         axis=nd - 1)
+            return qt, QTensor(q=ltree, scale=(None,) * nd, axis=nd - 1)
+        return tree, ltree
+
+    return walk(aparams, logical, "")

@@ -15,6 +15,7 @@ Entry points:
   decode_step(params, token, caches, pos, cfg, L)  single-token serve step
   loss_fn(params, batch, cfg)                   causal-LM / framewise cross entropy
   abstract_params / logical_axes                specs on the ``meta`` device, axis names
+  cache_shapes / cache_logical_axes             a decode step's caches: shapes, axis names
   params_from_numpy / params_to_numpy           the weight carry between packages
 
 ``cfg.remat`` recomputes each pattern group in the backward pass
@@ -100,15 +101,12 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
 def abstract_params(cfg: ArchConfig):
     """The params tree as tensors on the ``meta`` device: shapes and dtypes,
     nothing allocated (the reference's ``ShapeDtypeStruct`` tree)."""
-    return L.tree_map(
-        lambda s: torch.empty(s.shape, dtype=L.torch_dtype(s.dtype or cfg.param_dtype),
-                              device="meta"),
-        build_specs(cfg))
+    return L.abstract_from_specs(build_specs(cfg), cfg)
 
 
 def logical_axes(cfg: ArchConfig):
     """The params tree with each leaf's logical axis names."""
-    return L.tree_map(lambda s: s.logical, build_specs(cfg))
+    return L.logical_from_specs(build_specs(cfg))
 
 
 def param_count(cfg: ArchConfig) -> int:
@@ -405,6 +403,30 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
         elif kind == "rwkv6":
             group[f"pos{i}"] = R6.rwkv6_state_shapes(cfg, batch)
     return L.tree_map(lambda s: ((cfg.n_groups,) + s[0], s[1]), group)
+
+
+def cache_logical_axes(cfg: ArchConfig, seq_axis: str = "kv_seq"):
+    """Logical axes mirroring :func:`cache_shapes`.  ``seq_axis`` is
+    ``"kv_seq_model"`` when the kv heads cannot shard over the model axis
+    (the launcher decides by divisibility)."""
+    kv = ("layers", "decode_batch", seq_axis, "kv_heads", "head_dim")
+    mamba = {"conv": ("layers", "decode_batch", None, "ssm_heads"),
+             "ssm": ("layers", "decode_batch", "ssm_heads", "ssm_state", None)}
+    group = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind in ("attn", "local", "moe", "shared_attn"):
+            group[f"pos{i}"] = {"k": kv, "v": kv}
+        elif kind == "mamba2":
+            group[f"pos{i}"] = dict(mamba)
+        elif kind == "mamba2_shared":
+            group[f"pos{i}"] = {"mamba": dict(mamba), "attn": {"k": kv, "v": kv}}
+        elif kind == "rwkv6":
+            group[f"pos{i}"] = {
+                "tm_shift": ("layers", "decode_batch", None, "embed"),
+                "wkv": ("layers", "decode_batch", "heads", "head_dim", None),
+                "cm_shift": ("layers", "decode_batch", None, "embed"),
+            }
+    return group
 
 
 # ---------------------------------------------------------------------------

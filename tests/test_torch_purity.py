@@ -39,7 +39,10 @@ for name in names:
     importlib.import_module(name)
 assert {"repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.training.lm",
         "repro_torch.training.compression", "repro_torch.data.pipeline",
-        "repro_torch.distributed.embedding"} <= set(names)
+        "repro_torch.distributed.embedding", "repro_torch.launch.specs",
+        "repro_torch.launch.dryrun", "repro_torch.launch.comm_analysis",
+        "repro_torch.launch.roofline", "repro_torch.launch.hw",
+        "repro_torch.core.sequential"} <= set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
@@ -58,6 +61,39 @@ def test_port_imports_without_jax_or_repro():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) >= 50  # every module walked
+
+
+_DRYRUN_IMPORT = r"""
+import importlib, importlib.abc, os, sys
+BLOCKED = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+env = dict(os.environ)
+for name in ("repro_torch.launch.specs", "repro_torch.launch.dryrun",
+             "repro_torch.launch.comm_analysis", "repro_torch.launch.roofline",
+             "repro_torch.launch.hw", "repro_torch.core.sequential"):
+    importlib.import_module(name)
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the dry run started a process group"
+assert dict(os.environ) == env, "importing the dry run set an environment variable"
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_dry_run_imports_without_jax_repro_process_group_or_environment():
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_IMPORT], capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_no_jax_or_repro_import_statements():
