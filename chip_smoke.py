@@ -145,8 +145,9 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    deterministic algorithms); (b) under
    ``torch.use_deterministic_algorithms(True)``, with
    ``CUBLAS_WORKSPACE_CONFIG`` set by this script: 8 uninterrupted steps,
-   timed beside (a), then 6 steps, a SIGTERM as the 7th begins (the
-   driver's hook saves step 6, 25.06 GB, and exits 143), then a rerun that
+   timed beside (a), then a SIGTERM as the 6th step begins (the driver's
+   hook sets its flag, the loop finishes step 6, saves it, 25.06 GB, and
+   exits 143), then a rerun that
    restores it and resumes to step 8: steps 7-8's losses and the final
    params and moments bitwise the uninterrupted run's, checkpoint bytes,
    save and restore seconds (``lm_train_resume``; the driver's other
@@ -174,6 +175,24 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    the roofline bound is printed beside phase 10's step time
    (``dryrun_train``, ``dryrun_decode``); then gemma-2b x decode_32k on the
    256-rank production mesh runs in a child process (``dryrun_mesh``).
+
+12. tensor parallelism over ``"model"`` (``tp_phase``, run first, before
+   this process makes a CUDA context: its ranks share the card): gemma-2b at its
+   published width, one train step as ``launch.train`` takes it (8 x 128
+   tokens, two microbatches), by 2 and then 4 ranks sharing the card on
+   gloo, ("data", "model") = (1, 2) and (1, 4), each rank holding its part
+   of every leaf ``tree_shardings`` cuts: in fp32 at ``TP_FP32_LAYERS``
+   layers and in bf16 at full depth, loss, params and moments held leaf by
+   leaf against the 1-rank step within ``TP_ULPS`` times a one-ulp weight
+   nudge's change, every whole leaf the same bits on every rank (the fp32
+   run holds the backward: in bf16 a first step at ``launch.train``'s
+   warmup rate moves few weights, and one ulp of bf16 weight noise moves
+   the moments by about their own scale, so there only the loss binds); each
+   rank's parameter and Adam bytes and FLOPs equal to the dry run's and its
+   peak within ``DRYRUN_PEAK_TOL``; the fp32 state saved at (1, 2) and
+   restored bitwise at (1, 4) and on one rank (the ``tp*`` lines; each
+   rank's ms a step and the collectives' share printed, not claimed:
+   ranks sharing a card time no collective).
 
 With ``--parent DIR``, K1's
 and K2's device time at every serving layer, and ``project_rows``'s and
@@ -2750,8 +2769,8 @@ class TrainProbe:
     the emergency save and the restore timed, the state saved at step
     ``keep`` copied to the host, the state saved at step ``compare`` held
     bitwise against that copy, and SIGTERM sent to this process as the
-    step after the ``kill_after``-th is called (the driver's hook then saves
-    the ``kill_after``-th step's state)."""
+    step after the ``kill_after``-th is called (the driver's hook sets its
+    flag, and the loop saves that step's state when it ends)."""
 
     def __init__(self, torch, train_mod, ckpt_mod):
         self.torch, self.train, self.ckpt = torch, train_mod, ckpt_mod
@@ -2987,8 +3006,8 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
         "leg_s": legs_s["a"], "gpu": gpu_line}))
 
     # (b) under deterministic algorithms: 8 uninterrupted steps (timed: what
-    # determinism costs the step), then 6 steps, SIGTERM (the preemption hook
-    # saves step 6 and exits 143), and a rerun that resumes from that
+    # determinism costs the step), then SIGTERM as step 6 begins (the loop
+    # finishes it, saves step 6 and exits 143), and a rerun that resumes from that
     # checkpoint to step 8, bitwise the uninterrupted run
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
@@ -2999,7 +3018,7 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
         timed_b = timing(losses)
         try:
             try:
-                run("b", kill_after=LM_RESUME_AT, write=True)
+                run("b", kill_after=LM_RESUME_AT - 1, write=True)
                 check(False, "lm_train_resume: the driver ran on past its SIGTERM")
             except SystemExit as exc:
                 check(exc.code == 143, f"lm_train_resume: exit {exc.code}, not 143")
@@ -3186,8 +3205,9 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
                                           f"{fwd} (forward), {grad} (gradient)")
         table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev)
         ids = torch.randint(0, cfg.vocab, (2, LM_TRAIN_S), generator=gen, device=dev)
-        with SH.use_rules(rules):
-            gathered = embedding_gather(table, ids)
+        with SH.use_rules(rules):  # a cut of one rank: the masked lookup's path
+            gathered = embedding_gather(table, ids, SH.Cut(("model",), 1, 0,
+                                                           rules.group(("model",))))
         check(bitwise(torch, gathered, table[ids.long()]),
               "lm_train_collectives: embedding_gather differs from the plain gather")
         backend = dist.get_backend()
@@ -3374,6 +3394,692 @@ def dryrun_phase(torch, np, dev, gpu_line) -> None:
     print("dryrun_phase " + json.dumps({
         "phase_s": time.perf_counter() - t_phase, "parent_allocated_bytes": left,
         "parent_reserved_bytes": torch.cuda.memory_reserved(), "gpu": gpu_line}))
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+#: the worlds: ranks sharing one card (processes on gloo, which takes CUDA
+#: tensors; NCCL refuses two ranks on one device), ("data", "model") =
+#: (1, n)
+TP_WORLDS = (2, 4)
+#: the fp32 run's depth, the run that holds the backward leaf by leaf:
+#: several groups, so remat recomputes across them (a fault of the rules on
+#: autograd's thread showed from 2 layers); the time its comparisons and
+#: its checkpoint take bounds it (both move the whole state between the
+#: ranks, 1.26 GB of fp32 params and moments a layer)
+TP_FP32_LAYERS = 4
+#: tests/test_torch_lm_train.py's limits, leaf by leaf: ``TP_ULPS`` times
+#: what a one-ulp nudge of every weight (one ulp of its own dtype: fp32 or
+#: bf16) moves a metric by in the 1-rank step, or the floor
+TP_ULPS = 8
+TP_FLOOR = {"loss": 1e-6, "params": 1e-6, "mu": 1e-5}
+#: what a rank holds on the card besides its tensors (its CUDA context,
+#: loaded kernels, the allocator's slack), in fitting the ranks' predicted
+#: peaks on the card: ~2.9 GB measured on the H100 (the card's free bytes
+#: at world 2's bf16 step, against its two ranks' arguments), rounded up;
+#: four ranks at 1 GiB each ran out of memory at full depth
+TP_CONTEXT_BYTES = 4 << 30
+TP_DIR = ROOT / "build" / "tp"
+TP_STEP_ARGS = dict(b=8, s=128, n_micro=2)  # launch.train's traffic (phase 10's)
+
+
+def _tp_cfg(layers, dtype: str):
+    """gemma-2b's published config at ``layers`` (``None``: its own depth)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    cfg = cfg.replace(n_layers=layers or cfg.n_layers)
+    if dtype == "float32":
+        cfg = cfg.replace(param_dtype="float32", act_dtype="float32")
+    return cfg
+
+
+def _tp_opt(dtype: str):
+    """The fp32 run takes the CPU test's Adam (no clip, eps 1e-3), the bf16
+    run ``launch.train``'s (its warmup-cosine schedule over phase 10's 8
+    steps, the clip at 1.0)."""
+    from repro_torch.training.optimizer import Adam, cosine_warmup_schedule
+
+    if dtype == "float32":
+        return Adam(lr=1e-3, eps=1e-3, grad_clip_norm=None)
+    return Adam(lr=cosine_warmup_schedule(3e-4, warmup=10, total=LM_TRAIN_STEPS))
+
+
+def _digest(torch, t) -> int:
+    """An integer digest of a tensor's bits (its words weighted by position
+    and summed with int64 wraparound): equal tensors, equal digests."""
+    w = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    bits = t.contiguous().reshape(-1).view(w).to(torch.int64)
+    weight = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65521 + 1
+    return int((bits * weight).sum())
+
+
+def _nudged(torch, tree, seed: int):
+    """Every nonzero weight moved by one ulp of its dtype, up or down at
+    random (a zero's bits less one are a NaN's; the card's normals hold a
+    few exact zeros)."""
+    gen = torch.Generator(device=next(iter(_tensors(tree))).device).manual_seed(seed)
+
+    def leaf(t):
+        w = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        step = torch.randint(0, 2, t.shape, generator=gen, device=t.device, dtype=w) * 2 - 1
+        return torch.where(t == 0, t, (t.view(w) + step).view(t.dtype))
+
+    return {k: _nudged_walk(v, leaf) for k, v in tree.items()}
+
+
+def _nudged_walk(tree, leaf):
+    if isinstance(tree, dict):
+        return {k: _nudged_walk(tree[k], leaf) for k in sorted(tree)}
+    return leaf(tree)
+
+
+def _tp_leaf_err(torch, kind: str, got, want) -> float:
+    """``tests/test_torch_lm_train.py``'s metric of one leaf (``want`` may be
+    on the host): a param's largest absolute difference, a moment's
+    max|diff| / max|want|; in fp32, one leaf at a time."""
+    want = want.to(got.device)
+    diff = float((got.float() - want.float()).abs().max())
+    if kind == "params":
+        return diff
+    scale = float(want.float().abs().max())
+    return diff / scale if scale else float(got.float().abs().max())
+
+
+def _tp_errors(torch, loss: float, leaves, want: dict) -> dict:
+    """The step metrics of a run against ``want`` (``{"loss", "params",
+    "mu"}``, leaf name -> tensor), leaf by leaf: the loss relative, and
+    ``_tp_leaf_err`` of each ``("params" | "mu", name, tensor)`` of
+    ``leaves`` (an iterable, so one whole leaf is held at a time)."""
+    out = {"loss": abs(loss - want["loss"]) / abs(want["loss"]), "params": {}, "mu": {}}
+    for kind, name, t in leaves:
+        out[kind][name] = _tp_leaf_err(torch, kind, t, want[kind][name])
+    return out
+
+
+def _tp_within(err: dict, nudge: dict) -> dict:
+    """Each metric, leaf by leaf, against ``TP_ULPS`` times the nudge's
+    change of that leaf or the floor: the worst share of its limit and the
+    leaf that has it."""
+    out = {"loss": {"err": err["loss"], "nudge": nudge["loss"],
+                    "share": err["loss"] / max(TP_FLOOR["loss"], TP_ULPS * nudge["loss"])}}
+    for key in ("params", "mu"):
+        shares = {k: e / max(TP_FLOOR[key], TP_ULPS * nudge[key][k])
+                  for k, e in err[key].items()}
+        worst = max(shares, key=shares.get)
+        out[key] = {"share": shares[worst], "leaf": worst, "err": err[key][worst],
+                    "nudge": nudge[key][worst], "err_max": max(err[key].values()),
+                    "nudge_max": max(nudge[key].values())}
+        if shares[worst] > 1:  # what a failure looks like, leaf by leaf
+            out[key]["over"] = {k: [err[key][k], nudge[key][k]] for k in sorted(
+                shares, key=shares.get)[-6:]}
+    return out
+
+
+def _tp_reference(torch, np, cfg, dtype, dev, nudge=None) -> tuple[dict, dict]:
+    """The 1-rank step (no rules) on the seeded params and batch: its loss,
+    params and first moments on the host, and what one ulp of weight noise
+    moves them by (``_tp_errors`` of the nudged run; ``nudge``, when given,
+    is an earlier world's, of the same step)."""
+    import gc
+
+    from repro_torch.models import transformer as T
+    from repro_torch.training import lm as LM
+
+    batch = lm_train_batch(np, torch, cfg, dev, TP_STEP_ARGS["b"], TP_STEP_ARGS["s"])
+    opt = _tp_opt(dtype)
+    step = LM.make_train_step(cfg, opt, LM.TrainSettings(n_micro=TP_STEP_ARGS["n_micro"]))
+    runs = {"nudged": nudge}
+    for name in ("base",) if nudge is not None else ("base", "nudged"):
+        params = T.init_params(0, cfg, device=dev)
+        if name == "nudged":
+            params = _nudged(torch, params, SEED)
+            nonfinite = sum(int((~torch.isfinite(t)).sum()) for t in _tensors(params))
+        p2, o2, m = step(params, opt.init(params), batch)
+        del params
+        leaves = [("params", n, t) for n, t in _flat_named(p2)] + [
+            ("mu", n, t) for n, t in _flat_named(o2.mu)]
+        if name == "base":
+            runs[name] = {"loss": float(m["loss"]), "params": {}, "mu": {}}
+            for kind, n, t in leaves:
+                runs[name][kind][n] = t.cpu()
+        else:
+            runs[name] = _tp_errors(torch, float(m["loss"]), leaves, runs["base"])
+            runs[name]["nonfinite_weights"] = nonfinite
+        del p2, o2, m, leaves
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return runs["base"], runs["nudged"]
+
+
+class _CollectiveClock:
+    """Host seconds inside the ``torch.distributed`` collectives a step
+    issues (the device synchronised before and after each), while
+    entered."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single")
+
+    def __init__(self, torch, dist):
+        self.torch, self.dist, self.s, self.n = torch, dist, 0.0, 0
+        self.orig = {n: getattr(dist, n) for n in self.NAMES}
+
+    def _sync(self):
+        if self.torch.cuda.is_available():
+            self.torch.cuda.synchronize()
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            def timed(*a, _fn=fn, **k):
+                self._sync()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                self._sync()
+                self.s += time.perf_counter() - t0
+                self.n += 1
+                return out
+
+            setattr(self.dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+        return False
+
+
+def _tp_pairs(tree, specs, prefix: str = "") -> list:
+    """``(name, tensor, spec)`` of a dict tree and its specs (``None`` for a
+    whole subtree), keys sorted as ``_flat_named`` names them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _tp_pairs(tree[k], None if specs is None else specs[k],
+                                   f"{prefix}/{k}" if prefix else str(k))]
+    return [(prefix, tree, specs)]
+
+
+def _tp_state(params, opt_state) -> dict:
+    """(params, Adam state) as one named tree (an Adam state of ``None``:
+    the params' specs for the moments, ``None`` for the step)."""
+    if opt_state is None:
+        return {"p": params, "o": {"step": None, "mu": params, "nu": params}}
+    return {"p": params, "o": {"step": opt_state.step, "mu": opt_state.mu, "nu": opt_state.nu}}
+
+
+def _tp_whole(torch, SH, rules, mine, others, spec):
+    """A leaf made whole on rank 0 from its own part and the other ranks'
+    (shared with it through CUDA IPC, no copy over gloo); for a whole leaf,
+    whether every rank holds the same bits."""
+    cuts = SH.spec_cuts(spec, rules)
+    if not cuts:
+        return mine, all(torch.equal(_bits(torch, o), _bits(torch, mine)) for o in others)
+    (dim, _), = cuts.items()
+    return torch.cat([mine, *others], dim=dim), True
+
+
+def _tp_warm(torch, SH, rules, dev) -> float:
+    """Seconds of a first sharded forward and backward of a toy: gloo's
+    first CUDA collectives in a process (and on autograd's device thread)
+    take seconds that later ones do not."""
+    t0 = time.perf_counter()
+    group = rules.group(("model",))
+    for _ in range(2):
+        x = torch.ones(1 << 20, device=dev, requires_grad=True)
+        SH.reduce_from(SH.copy_to(x, group) * 2, group).sum().backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _tp_kernel_warm(torch, np, dev) -> float:
+    """Seconds of one 1-rank step of a one-layer gemma-2b with a 32,000-row
+    vocab (a few GB), in fp32 and in bf16: the kernels a step launches load
+    on their first use, so a rank that has run no step would make the others
+    wait for it inside the first sharded step's collectives.  Rank 0 needs
+    none: its 1-rank reference steps come first."""
+    import gc
+
+    from repro_torch.models import transformer as T
+    from repro_torch.training import lm as LM
+
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        cfg = _tp_cfg(1, dtype).replace(vocab=32_000)
+        params = T.init_params(0, cfg, device=dev)
+        batch = lm_train_batch(np, torch, cfg, dev, TP_STEP_ARGS["b"], TP_STEP_ARGS["s"])
+        opt = _tp_opt(dtype)
+        out = LM.make_train_step(cfg, opt, LM.TrainSettings(n_micro=TP_STEP_ARGS["n_micro"]))(
+            params, opt.init(params), batch)
+        del params, batch, out
+        gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def tp_rank(rank: int, world: int, port: int, tp_dir: str, queue, device_type: str = "cuda",
+            go=None):
+    """One rank of phase 12 (a process of its own, on gloo): for the fp32 run
+    and the bf16 run, rank 0 first takes the 1-rank step (and its one-ulp
+    nudge), then every rank places the seeded params as ``tree_shardings``
+    cuts them, takes the sharded step, and hands its parts to rank 0
+    through CUDA IPC, which holds the whole against the 1-rank step; in the
+    bf16 run each rank holds its argument bytes, FLOPs and peak against the
+    dry run's prediction; world 2 saves the fp32 state (rank 0 writes), and
+    world 4 first restores it onto its mesh and on one rank.  A world
+    started early (``go``, an event) joins its process group and waits for
+    it before it makes a CUDA context.  Rank 0 writes
+    ``rank0_<world>.json``."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import lm as LM
+    from repro_torch.training.optimizer import AdamState
+
+    tp_dir = Path(tp_dir)
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    cuda = dev.type == "cuda"
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    if go is not None:  # no CUDA context on the card before the earlier world ends
+        check(go.wait(timeout=900), "tp: the earlier world never ended")
+    if cuda:
+        torch.cuda.set_device(dev)
+    rules = SH.ShardingRules(make_host_mesh(model=world, device=dev))
+    out = {"world": world, "mesh": SH.mesh_shape(rules.mesh), "runs": {},
+           "warm_s": _tp_warm(torch, SH, rules, dev)}
+    if cuda:
+        torch.cuda.empty_cache()
+    if rank:  # beside rank 0's first 1-rank reference (a few GB at a time)
+        out["kernel_warm_s"] = _tp_kernel_warm(torch, np, dev)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.ipc_collect()  # blocks rank 0 has read through IPC and let go
+            torch.cuda.empty_cache()
+
+    def placed(cfg, seed_params=True):
+        specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+        whole = T.init_params(0, cfg, device=dev)
+        params = SH.shard_tree(whole, specs, rules, device=dev)
+        del whole
+        return specs, params
+
+    def gather_to_0(tag, named: dict):
+        """Rank 0: every other rank's ``named`` tensors, shared through CUDA
+        IPC (they stay alive on their ranks until the barrier after)."""
+        if rank:
+            queue.put((tag, rank, named))
+            return None
+        got = {}
+        while len(got) < world - 1:
+            t, r, named_r = queue.get(timeout=600)
+            check(t == tag, f"tp: rank 0 expected {tag}, got {t}")
+            got[r] = named_r
+        return [got[r] for r in range(1, world)]
+
+    def digests(state_pairs, others) -> dict:
+        return {n: _digest(torch, _tp_whole(torch, SH, rules, t, [o[n] for o in others], s)[0])
+                for n, t, s in state_pairs}
+
+    ckpt_specs = None
+    if world == TP_WORLDS[-1]:
+        # the checkpoint world 2 wrote, restored onto this mesh and on one rank
+        cfg = _tp_cfg(TP_FP32_LAYERS, "float32")
+        opt = _tp_opt("float32")
+        specs, params = placed(cfg)
+        state_specs = (specs, AdamState(None, specs, specs))
+        t0 = time.perf_counter()
+        with SH.use_rules(rules):
+            step_no, state = CK.restore_checkpoint(tp_dir / "ckpt" / "step_0000000001",
+                                                   (params, opt.init(params)),
+                                                   shardings=state_specs, device=dev)
+        restore_s = time.perf_counter() - t0
+        pairs = _tp_pairs(_tp_state(*state), _tp_state(specs, None))
+        others = gather_to_0("restore", {n: t for n, t, _ in pairs})
+        if rank == 0:
+            want = json.loads((tp_dir / "digests.json").read_text())
+            got = digests(pairs, others)
+            whole_like = T.init_params(0, cfg, device=dev)
+            t0 = time.perf_counter()
+            _, one = CK.restore_checkpoint(tp_dir / "ckpt" / "step_0000000001",
+                                           (whole_like, opt.init(whole_like)), device=dev)
+            one_s = time.perf_counter() - t0
+            one_d = {n: _digest(torch, t) for n, t in _flat_named(_tp_state(*one))}
+            out["restore"] = {"step": step_no, "leaves": len(want),
+                              "mesh_bitwise": got == want, "one_rank_bitwise": one_d == want,
+                              "restore_s": restore_s, "one_rank_restore_s": one_s}
+            del whole_like, one
+            others = None
+            gc.collect()
+        dist.barrier()
+        del state, params, others
+        free()
+        dist.barrier()
+
+    runs = [("fp32", TP_FP32_LAYERS, "float32"), ("bf16", None, "bfloat16")]
+    for name, layers, dtype in runs:
+        plan = None
+        if dtype == "bfloat16":
+            path = tp_dir / "predict.json"
+            t_wait = time.perf_counter()
+            while not path.exists():
+                check(time.perf_counter() - t_wait < 900, "tp: no dry-run prediction")
+                time.sleep(0.5)
+            plan = json.loads(path.read_text())
+            check("error" not in plan, f"tp: the dry run's prediction failed: {plan.get('error')}")
+            plan = plan[str(world)]
+            layers = plan["layers"]
+            if rank == 0:
+                print("tp_predict " + json.dumps({"world": world, **plan}), flush=True)
+        cfg = _tp_cfg(layers, dtype)
+        opt = _tp_opt(dtype)
+        ref = nudge = None
+        t0 = time.perf_counter()
+        nudge_file = tp_dir / f"nudge_{name}_{layers}.json"  # the same 1-rank step
+        if rank == 0:
+            ref, nudge = _tp_reference(torch, np, cfg, dtype, dev, json.loads(
+                nudge_file.read_text()) if nudge_file.exists() else None)
+            nudge_file.write_text(json.dumps(nudge))
+        ref_s = time.perf_counter() - t0
+        free()
+        dist.barrier()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        t0 = time.perf_counter()
+        specs, params = placed(cfg)
+        opt_state = opt.init(params)
+        batch = lm_train_batch(np, torch, cfg, dev, TP_STEP_ARGS["b"], TP_STEP_ARGS["s"])
+        free()
+        place_s = time.perf_counter() - t0
+        args_bytes = D.StepMeter().track((params, opt_state, batch))
+        batch_bytes = D.StepMeter().track(batch)
+        step = LM.make_train_step(cfg, opt, LM.TrainSettings(n_micro=TP_STEP_ARGS["n_micro"]))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        flops = FlopCounterMode(display=False)
+        clock = _CollectiveClock(torch, dist)
+        if cuda:
+            res_free = torch.cuda.mem_get_info()[0]
+        dist.barrier()  # the ranks start the step together: no wait for a late one
+        t0 = time.perf_counter()
+        with SH.use_rules(rules), flops, clock:
+            p2, o2, m = step(params, opt_state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+        res = {"layers": layers, "dtype": dtype, "ref_s": ref_s, "place_s": place_s,
+               "step_ms": step_s * 1e3,
+               "card_free_bytes_at_step": res_free if cuda else None,
+               "collective_s": clock.s, "collectives": clock.n,
+               "collective_share": clock.s / step_s, "argument_bytes": args_bytes,
+               "param_adam_bytes": args_bytes - batch_bytes,
+               "flops": float(flops.get_total_flops()), "peak_bytes": peak}
+        if plan is not None:
+            res["pred"] = {k: plan[k] for k in ("argument_bytes", "batch_bytes", "peak_bytes",
+                                                 "flops")}
+            res["argument_equal"] = res["param_adam_bytes"] == (plan["argument_bytes"]
+                                                                 - plan["batch_bytes"])
+            res["flops_equal"] = res["flops"] == plan["flops"]
+            res["peak_rel_err"] = ((plan["peak_bytes"] - peak) / peak) if peak else None
+        # every rank's parts to rank 0, which holds the whole against the
+        # 1-rank step; a whole leaf must hold the same bits on every rank
+        del params, opt_state, batch  # the step's inputs: only its outputs are compared
+        free()  # a rank's cached blocks are no other process's to use
+        pairs = _tp_pairs(_tp_state(p2, o2), _tp_state(specs, None))
+        others = gather_to_0(name, {n: t for n, t, _ in pairs})
+        losses = [torch.zeros(1, device=dev) for _ in range(world)]
+        dist.all_gather(losses, m["loss"].reshape(1).to(torch.float32).contiguous())
+        # one cut leaf through gloo too: the IPC path reads what gloo moves
+        n0, t0_, s0 = next((n, t, s) for n, t, s in pairs if SH.spec_cuts(s, rules))
+        via_gloo = SH.unshard(t0_, s0, rules)
+        if rank == 0:
+            t_compare = time.perf_counter()
+            same = []
+
+            def wholes():
+                for n, t, s in pairs:
+                    kind = "params" if n.startswith("p/") else "mu" if n.startswith(
+                        "o/mu/") else None
+                    whole, equal = _tp_whole(torch, SH, rules, t, [o[n] for o in others], s)
+                    same.append(equal)
+                    if not equal:
+                        unequal.append(n)
+                    if kind is not None:
+                        yield kind, n.split("/", 2)[-1] if kind == "mu" else n[2:], whole
+                    del whole
+
+            unequal = []
+            within = _tp_within(_tp_errors(torch, float(m["loss"]), wholes(), ref), nudge)
+            via_ipc = _tp_whole(torch, SH, rules, t0_, [o[n0] for o in others], s0)[0]
+            res["ipc_equals_gloo"] = bool(torch.equal(_bits(torch, via_ipc),
+                                                      _bits(torch, via_gloo)))
+            del via_ipc
+            res.update(against_one_rank=within, unequal_whole_leaves=unequal[:8],
+                       compare_s=time.perf_counter() - t_compare,
+                       nudge_nonfinite_weights=nudge.get("nonfinite_weights"),
+                       within=all(v["share"] <= 1 for v in within.values()),
+                       whole_leaves_equal=all(same),
+                       losses_equal=all(float(v) == float(losses[0]) for v in losses))
+            if name == "fp32" and world == TP_WORLDS[0]:  # what world 4 restores
+                (tp_dir / "digests.json").write_text(json.dumps(digests(pairs, others)))
+            others = None  # let the other ranks' parts go before they free them
+            gc.collect()
+        dist.barrier()  # the parts stay alive until rank 0 has read them
+        if name == "fp32" and world == TP_WORLDS[0]:
+            t0 = time.perf_counter()
+            with SH.use_rules(rules):
+                CK.save_checkpoint(tp_dir / "ckpt", 1, (p2, o2),
+                                   shardings=(specs, AdamState(None, specs, specs)))
+            res["save_s"] = time.perf_counter() - t0
+            if rank == 0:
+                res["ckpt_bytes"] = sum(f.stat().st_size for f in
+                                        (tp_dir / "ckpt" / "step_0000000001").iterdir())
+        out["runs"][name] = res
+        del p2, o2, m, pairs, ref, via_gloo, others
+        free()
+        dist.barrier()  # every rank's memory is back before rank 0's next reference
+    if rank == 0:
+        (tp_dir / f"rank0_{world}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_predict(path: str, total_memory, device_type: str = "cuda") -> None:
+    """The dry run's prediction for phase 12's bf16 runs (a child process:
+    a fake world per mesh): each world's depth (the published 18 layers,
+    or the most whose predicted peaks, one a rank, fit the card), and at
+    it one rank's argument and batch bytes, peak and FLOPs; written to
+    ``path`` (``{"error": ...}`` on a failure, so the ranks stop)."""
+    import traceback
+
+    out = {}
+    try:
+        import torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.distributed.sharding import ShardingRules
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.specs import ShapeSpec
+
+        shape = ShapeSpec("tp", TP_STEP_ARGS["s"], TP_STEP_ARGS["b"], "train")
+        if total_memory is None:
+            total_memory = torch.cuda.get_device_properties(0).total_memory
+        full = _tp_cfg(None, "bfloat16").n_layers
+        for world in TP_WORLDS:
+            t0 = time.perf_counter()
+            D.fake_world(world)
+            rules = ShardingRules(init_device_mesh(device_type, (1, world),
+                                                   mesh_dim_names=("data", "model")))
+
+            def trace(layers):
+                return D.trace_cell(_tp_cfg(layers, "bfloat16"), shape, rules,
+                                    TP_STEP_ARGS["n_micro"], device=device_type)
+
+            def fits(rec):
+                return world * (rec["memory"]["peak_bytes"] + TP_CONTEXT_BYTES) <= total_memory
+
+            layers, rec = full, trace(full)
+            if not fits(rec):  # the peak is linear in depth: solve from a second trace
+                half = trace(full // 2)
+                per = (rec["memory"]["peak_bytes"] - half["memory"]["peak_bytes"]) / (
+                    full - full // 2)
+                room = total_memory / world - TP_CONTEXT_BYTES - half["memory"]["peak_bytes"]
+                layers = max(1, min(full, full // 2 + int(room // per)))
+                rec = trace(layers)
+            with FakeTensorMode():  # the rank's rows: data = 1
+                batch = {k: torch.empty((shape.global_batch, shape.seq_len), dtype=torch.int32,
+                                        device=device_type) for k in ("tokens", "labels")}
+                batch_bytes = D.StepMeter().track(batch)
+            out[str(world)] = {"layers": layers, "cut": layers < full, "fits": fits(rec),
+                               "argument_bytes": rec["memory"]["argument_bytes"],
+                               "batch_bytes": batch_bytes, "peak_bytes": rec["memory"]["peak_bytes"],
+                               "flops": rec["flops_per_device"], "trace_s": rec["trace_s"],
+                               "collectives": rec["collectives"]["counts"],
+                               "child_s": time.perf_counter() - t0}
+    except Exception as exc:  # noqa: BLE001 -- handed to the ranks, which fail the phase
+        out = {"error": f"{type(exc).__name__}: {exc}", "traceback": traceback.format_exc()}
+    tmp = Path(path).with_suffix(".tmp")
+    tmp.write_text(json.dumps(out))
+    tmp.replace(path)
+    print("tp_predict_child " + json.dumps(out))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tp_report(w: dict, dev, gpu_line: str) -> list[str]:
+    """One world's ``tp`` lines; the failures of its checks."""
+    world = w["world"]
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            failed.append(msg)
+
+    for name, r in w["runs"].items():
+        print("tp " + json.dumps({"world": world, "mesh": w["mesh"], "run": name, **r,
+                                  "warm_s": w["warm_s"], "world_s": w["world_s"],
+                                  "gpu": gpu_line}), flush=True)
+        check(r["within"] and r["whole_leaves_equal"] and r["losses_equal"]
+              and r["ipc_equals_gloo"],
+              f"tp: world {world} {name}: the sharded step is not the 1-rank step's "
+              f"({r['against_one_rank']}, whole leaves equal {r['whole_leaves_equal']}, "
+              f"losses equal {r['losses_equal']})")
+        if "pred" in r:
+            check(r["argument_equal"] and r["flops_equal"],
+                  f"tp: world {world}: arguments {r['param_adam_bytes']} / FLOPs "
+                  f"{r['flops']} against the dry run's {r['pred']}")
+            if dev.type == "cuda":
+                check(abs(r["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
+                      f"tp: world {world}: predicted peak {r['pred']['peak_bytes']} is "
+                      f"{r['peak_rel_err']:+.3f} of the card's {r['peak_bytes']}")
+    return failed
+
+
+def tp_phase(torch, np, dev, gpu_line) -> None:
+    """Tensor parallelism over ``"model"`` on the card (the ``tp*`` lines):
+    gemma-2b at its published width trained one step as ``launch.train``
+    takes it (8 x 128 tokens, two microbatches, remat in bf16) by 2 and
+    then 4 ranks sharing the card, ("data", "model") = (1, 2) and (1, 4),
+    each rank holding its part of every leaf ``tree_shardings`` cuts, held
+    against the 1-rank step (:func:`tp_rank`): in fp32 at
+    ``TP_FP32_LAYERS`` layers (the run that holds the gradients and
+    moments) and in bf16 at full depth (model = 4: the most the four
+    ranks' predicted peaks allow), each within ``TP_ULPS``
+    times what one ulp of weight noise moves the 1-rank step by; each rank's
+    parameter and Adam bytes, FLOPs and peak against the dry run's
+    prediction (made by :func:`tp_predict` in a process beside world 2, and
+    printed by rank 0 before its step); the fp32 state saved by world 2 and
+    restored bitwise by world 4 and on one rank.  Ranks sharing one card
+    time no collective (gloo copies through the host): each rank's ms a
+    step and the collectives' share are printed, not claimed.  Runs no
+    hand-written kernel."""
+    import gc
+    import shutil
+
+    import torch.multiprocessing as tmp
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    total = None if dev.type == "cuda" else 80 * 10 ** 9  # the child reads the card's
+    ctx = tmp.get_context("spawn")  # fresh processes: no CUDA state, no process group
+    predict = ctx.Process(target=tp_predict, args=(str(TP_DIR / "predict.json"), total,
+                                                   dev.type))
+    predict.start()
+    ctx = tmp.get_context("spawn")
+    worlds, failed = {}, []
+    go = ctx.Event()  # the later world starts early and waits for the earlier one
+    started, queues = {}, []
+    try:
+        for i, world in enumerate(TP_WORLDS):
+            queue, port = ctx.Queue(), _free_port()  # held in ``queues``: the
+            queues.append(queue)  # children rebuild it after start() drops its args
+            started[world] = (time.perf_counter(), [ctx.Process(
+                target=tp_rank, args=(r, world, port, str(TP_DIR), queue, dev.type,
+                                      go if i else None)) for r in range(world)])
+            for p in started[world][1]:
+                p.start()
+        t_go = None
+        for world in TP_WORLDS:
+            t0, procs = started[world]
+            for p in procs:
+                p.join(timeout=900)
+            codes = [p.exitcode for p in procs]
+            check(codes == [0] * world, f"tp: world {world}'s ranks exited {codes}")
+            if t_go is not None:
+                t0 = t_go  # a later world's time counts from its go
+            t_go = time.perf_counter()
+            go.set()
+            worlds[world] = json.loads((TP_DIR / f"rank0_{world}.json").read_text())
+            worlds[world]["world_s"] = time.perf_counter() - t0
+            failed += _tp_report(worlds[world], dev, gpu_line)
+    finally:
+        for _, procs in started.values():  # a failed world stops the ones waiting
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+        predict.join(timeout=60)
+        if predict.is_alive():
+            predict.kill()
+    check(predict.exitcode == 0, f"tp: the prediction child exited {predict.exitcode}")
+    restore = worlds[TP_WORLDS[-1]]["restore"]
+    print("tp_checkpoint " + json.dumps({
+        "saved_by": list(worlds[TP_WORLDS[0]]["mesh"].values()),
+        "restored_on": list(worlds[TP_WORLDS[-1]]["mesh"].values()), **restore,
+        "save_s": worlds[TP_WORLDS[0]]["runs"]["fp32"]["save_s"],
+        "ckpt_bytes": worlds[TP_WORLDS[0]]["runs"]["fp32"]["ckpt_bytes"], "gpu": gpu_line}))
+    check(not failed, "; ".join(failed))
+    check(restore["mesh_bitwise"] and restore["one_rank_bitwise"] and restore["step"] == 1,
+          f"tp: the checkpoint across meshes: {restore}")
+    shutil.rmtree(TP_DIR / "ckpt", ignore_errors=True)
+    print("tp_phase " + json.dumps({
+        "phase_s": time.perf_counter() - t_phase,
+        "world_s": {w: v["world_s"] for w, v in worlds.items()}, "gpu": gpu_line}))
 
 
 def _cache_zeros(torch, T, cfg, dev) -> dict:
@@ -3620,6 +4326,10 @@ def main(argv: list[str] | None = None) -> int:
     try:
         gpu_line = nvidia_smi()
         print(f"gpu {gpu_line}")
+        # phase 12 first: its ranks share the card, and this process makes
+        # no CUDA context before them (a context that has run the other
+        # phases holds GBs the ranks' full-depth steps need)
+        tp_phase(torch, np, torch.device("cuda"), gpu_line)
         t0 = time.perf_counter()
         backend.library()
         print(f"build_seconds {time.perf_counter() - t0:.1f} (nvcc {backend.build_seconds:.1f})")

@@ -6,9 +6,10 @@ config compares equal with the reference's.  Some fields only steer the
 reference's XLA program and change no value here: ``remat`` (each group
 recomputed in the backward pass, ``torch.utils.checkpoint``),
 ``stack_mode`` (``"scan"`` and ``"unroll"`` are one loop over the stacked
-groups in the port) and ``unroll_attn`` (the KV-chunk loop is a Python loop
-either way); ``sharded_embed_gather`` and ``moe_impl="a2a"`` pick the
-vocab-parallel gather and the expert-parallel MoE, which run collectives
+groups in the port), ``unroll_attn`` (the KV-chunk loop is a Python loop
+either way) and ``sharded_embed_gather`` (a vocab-cut table always takes the
+masked lookup and a whole one the plain gather, whose results are equal).
+``moe_impl="a2a"`` picks the expert-parallel MoE, which runs collectives
 when sharding rules over several ranks are active."""
 from __future__ import annotations
 

@@ -25,13 +25,23 @@ device, ``torch.distributed`` initialised by the launcher), or, when no
 process group is initialised, a one-process :class:`HostMesh` with the same
 ``axis_names`` and ``shape`` and every axis of size 1.
 
-The port places tensors by process group, not by annotation: every rank
-holds whole parameters and its own rows of the batch, and the few places
-where the reference's ``shard_map`` moves data (the vocab-parallel gather,
-the expert-parallel MoE, the data-parallel gradient sum) call the autograd
-collectives at the end of this module over :meth:`ShardingRules.group`.
-``constrain`` is therefore an identity.  On a :class:`HostMesh` the groups
-are ``None`` and every collective is an identity.
+The port places tensors by process group, not by annotation.  Every LM
+parameter, and its Adam moments, is held as this rank's part of the spec
+``tree_shardings`` gives it (:func:`shard_tree`; a dimension whose spec
+names mesh axes of more than one rank is cut into equal contiguous parts,
+the rank's part picked by ``ShardingRules.axis_index``), every rank holds
+its own rows of the batch, and the blocks compute on those parts with the
+Megatron-style autograd collectives at the end of this module over
+:meth:`ShardingRules.group`: ``copy_to`` where a whole activation enters
+work split over a group, ``reduce_from`` where partial results leave it,
+``gather_dim`` where a block needs a cut leaf (or activation) whole.  A
+block asks :func:`dim_cut` whether a dimension of one of its leaves is cut,
+from the leaf's logical axes, its global shape and the active rules, and
+never guesses from the shapes it is handed.  A mesh axis of size 1 cuts
+nothing, so a ``"model"`` axis of 1 (or a :class:`HostMesh`) runs the
+program of whole parameters.  ``constrain`` is an identity.  On a
+:class:`HostMesh` the groups are ``None`` and every collective is an
+identity.
 """
 from __future__ import annotations
 
@@ -39,11 +49,12 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Any, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.quantization import QTensor
 from repro_torch.kernels.backend import resolve_device
 
 try:
@@ -189,15 +200,17 @@ class ShardingRules:
         return tuple(a for a in axes if a in self.axis_names)
 
     def spec(self, logical_shape: Sequence[Optional[str]],
-             dims: Optional[Sequence[int]] = None) -> tuple:
+             dims: Optional[Sequence[int]] = None, *, record: bool = True) -> tuple:
         """Resolve logical axis names (+ optional dim sizes for divisibility)
         to one entry a dimension: ``None``, a mesh axis, or a tuple of them.
 
         A mesh axis may shard at most one dimension of a tensor: earlier
         dimensions win (e.g. MoE expert weights ("experts","embed","mlp")
         give the model axis to "experts"; "mlp" falls back to replicated).
-        Non-divisible mappings also fall back; both are logged.
+        Non-divisible mappings also fall back; both are logged unless
+        ``record`` is false (a block asking again during a step).
         """
+        log = self.fallbacks if record else []
         parts = []
         used: set[str] = set()
         shape = self.shape
@@ -207,13 +220,13 @@ class ShardingRules:
             total = 1
             for a in axes:
                 if a in used:
-                    self.fallbacks.append((name or "?", -1, f"{a} already used in tensor"))
+                    log.append((name or "?", -1, f"{a} already used in tensor"))
                     continue
                 n = shape[a]
                 if dims is not None:
                     size = dims[i]
                     if size % (total * n) != 0:
-                        self.fallbacks.append((name or "?", size, f"{a}={n} !| {size}"))
+                        log.append((name or "?", size, f"{a}={n} !| {size}"))
                         continue
                 kept.append(a)
                 total *= n
@@ -293,8 +306,9 @@ def kv_seq_axis(n_kv_heads: int) -> str:
 
 def constrain(x: torch.Tensor, logical_shape: Sequence[Optional[str]]) -> torch.Tensor:
     """The reference's activation annotation: an identity here.  The port
-    places tensors by process group (each rank holds its rows), so there
-    is nothing to annotate; the call stays where the reference has it."""
+    places parameters by :func:`shard_tree` and each block moves its
+    activations with explicit collectives, so there is nothing to
+    annotate; the call stays where the reference has it."""
     return x
 
 
@@ -302,14 +316,158 @@ def is_logical_leaf(t) -> bool:
     return isinstance(t, tuple) and all(isinstance(i, (str, type(None))) for i in t)
 
 
-def tree_shardings(rules: ShardingRules, abstract_tree, logical_tree):
+def tree_shardings(rules: ShardingRules, abstract_tree, logical_tree, *, record: bool = True):
     """The tree of specs for params: ``logical_tree`` mirrors the abstract
     param tree (tensors on the ``meta`` device, or anything with a
     ``shape``), with tuples of logical axis names at the leaves."""
     if is_logical_leaf(logical_tree):
-        return rules.spec(logical_tree, dims=tuple(abstract_tree.shape))
-    return {k: tree_shardings(rules, abstract_tree[k], logical_tree[k])
+        return rules.spec(logical_tree, dims=tuple(abstract_tree.shape), record=record)
+    return {k: tree_shardings(rules, abstract_tree[k], logical_tree[k], record=record)
             for k in sorted(logical_tree)}  # the reference's leaf order (fallbacks log)
+
+
+# ---------------------------------------------------------------------------
+# placement: this rank's parts of the leaves
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How a leaf is cut: into ``size`` equal contiguous parts over the mesh
+    axes ``axes``; this rank holds part ``index``, and ``group`` is the
+    process group of the ranks holding the parts (in part order)."""
+
+    axes: tuple[str, ...]
+    size: int
+    index: int
+    group: Any
+
+    def part(self, n: int) -> slice:
+        """This rank's part of a dimension of global length ``n``."""
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _cut(axes: tuple[str, ...], rules: ShardingRules) -> Optional[Cut]:
+    n = rules.size(axes) if axes else 1
+    if n == 1:
+        return None
+    return Cut(axes, n, rules.axis_index(axes), rules.group(axes))
+
+
+def spec_cuts(spec, rules: ShardingRules) -> dict[int, Cut]:
+    """``{dim: Cut}`` of the dimensions a spec cuts (mesh axes of more than
+    one rank); a whole leaf gives ``{}``."""
+    cuts = {}
+    for i, entry in enumerate(spec or ()):
+        c = _cut(_entry_axes(entry), rules)
+        if c is not None:
+            cuts[i] = c
+    return cuts
+
+
+def spec_cut(spec, rules: ShardingRules) -> Optional[Cut]:
+    """The whole leaf's cut: the mesh axes of all its cut dimensions
+    together (what a sum or a max over the leaf reduces over), or ``None``
+    for a whole leaf."""
+    axes = tuple(a for entry in (spec or ()) for a in _entry_axes(entry))
+    return _cut(axes, rules)
+
+
+def dim_cut(logical: Sequence[Optional[str]], dims: Sequence[int], dim: int) -> Optional[Cut]:
+    """How dimension ``dim`` of a leaf with logical axes ``logical`` and
+    global shape ``dims`` is held under the active rules: its :class:`Cut`,
+    or ``None`` where every rank holds it whole.  The leaf's spec is ``rules.spec(logical, dims)``, divisibility
+    fallback included (not logged again), so a block reads the cut from its
+    config and never from the shapes it is handed."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    return spec_cuts(rules.spec(logical, dims, record=False), rules).get(dim)
+
+
+def batch_cut() -> Optional[Cut]:
+    """How the batch's rows are split over the ranks under the active
+    rules: over the mesh axes of ``"batch"``, or ``None`` where one rank
+    holds them all."""
+    rules = active_rules()
+    return None if rules is None else _cut(rules.mesh_axes_for("batch"), rules)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over the leaves of ``tree`` (nested dicts, named
+    tuples, tuples and lists) and the matching entries of ``specs``, a tree
+    of the same structure with a spec at each leaf; ``None`` in ``specs``
+    stands for a whole subtree."""
+    if isinstance(tree, Mapping):
+        return {k: map_specs(fn, v, None if specs is None else specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, getattr(tree, f),
+                                      None if specs is None else getattr(specs, f))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v, None if specs is None else specs[i])
+                          for i, v in enumerate(tree))
+    return fn(tree, specs)
+
+
+def _no_qtensor(leaf) -> None:
+    if isinstance(leaf, QTensor):
+        raise NotImplementedError(
+            "int8 QTensor leaves cannot be placed on a mesh yet (ROADMAP Queue 1: QTensor "
+            "shards)")
+
+
+def shard(t: torch.Tensor, spec, rules: ShardingRules, *, device="cuda") -> torch.Tensor:
+    """This rank's part of the whole tensor ``t`` under ``spec``, on
+    ``device`` (``"cuda"`` by default; without a GPU that raises unless
+    ``device="cpu"``)."""
+    _no_qtensor(t)
+    dev = resolve_device(device)
+    cuts = spec_cuts(spec, rules)
+    if not cuts:
+        return t.to(dev)
+    for dim, c in cuts.items():
+        n = t.shape[dim]
+        if n % c.size:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide over "
+                             f"{c.axes} ({c.size} ranks)")
+        t = t.narrow(dim, c.index * (n // c.size), n // c.size)
+    return t.to(dev).clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree, specs, rules: ShardingRules, *, device="cuda"):
+    """This rank's parts of a tree of whole leaves (:func:`shard` on each,
+    ``specs`` as :func:`map_specs` reads it)."""
+    return map_specs(lambda t, spec: shard(t, spec, rules, device=device), tree, specs)
+
+
+def unshard(t: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
+    """The whole leaf of which ``t`` is this rank's part, gathered over the
+    groups of its cut dimensions (a collective: every rank of those groups
+    calls it)."""
+    _no_qtensor(t)
+    for dim, c in spec_cuts(spec, rules).items():
+        t = _all_gather_dim(t, group_of(c), dim)
+    return t
+
+
+def unshard_tree(tree, specs, rules: ShardingRules):
+    """The whole leaves of a tree of parts, on every rank (a checkpoint's
+    save gathers leaf by leaf with :func:`unshard` and writes on rank 0)."""
+    return map_specs(lambda t, spec: unshard(t, spec, rules), tree, specs)
+
+
+def global_shape(shape: Sequence[int], spec, rules: ShardingRules) -> tuple[int, ...]:
+    """The whole leaf's shape from the shape of one rank's part."""
+    out = list(shape)
+    for dim, c in spec_cuts(spec, rules).items():
+        out[dim] *= c.size
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +514,36 @@ class _GatherFrom(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        n = dist.get_world_size(group)
         ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
+        return _all_gather_dim(x, group, 0)
 
     @staticmethod
     def backward(ctx, g):
         return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def _all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The parts of ``group``'s ranks, in rank order, joined along ``dim``."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _GatherDim(torch.autograd.Function):
+    """Forward all-gather along ``dim`` over a cut's group, backward this
+    rank's part of the gradient: a cut leaf (or activation) made whole for
+    work every rank of the group then does alike (the gradient each rank
+    computes is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, cut, dim):
+        ctx.index, ctx.n, ctx.dim = cut.index, x.shape[dim], dim
+        return _all_gather_dim(x, group_of(cut), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -406,9 +585,32 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _AllToAll.apply(x, group)
 
 
+def gather_dim(x, cut: Optional[Cut], dim: int):
+    """``x`` joined with the other parts of ``cut`` along ``dim`` (an
+    identity for ``cut`` ``None``); the backward keeps this rank's part."""
+    if cut is None:
+        return x
+    return _GatherDim.apply(x, cut, dim % x.ndim)
+
+
+def group_of(cut: Optional[Cut]):
+    """A cut's process group, ``None`` for a whole leaf (where every
+    collective is an identity).  A cut over ranks that have no process
+    group (a mesh that is not a ``DeviceMesh``) raises: its parts cannot be
+    combined, and the program of whole parameters is not a fallback."""
+    if cut is None:
+        return None
+    if cut.group is None:
+        raise RuntimeError(f"a cut over {cut.axes} ({cut.size} ranks) has no process group: "
+                           "build the mesh over an initialised torch.distributed world")
+    return cut.group
+
+
 __all__ = [
     "STREAM_AXIS", "StreamMesh", "stream_mesh", "DEFAULT_RULES", "LONG_CONTEXT_OVERRIDES",
     "HostMesh", "ShardingRules", "active_rules", "use_rules", "kv_seq_axis", "constrain",
     "is_logical_leaf", "tree_shardings", "mesh_shape", "copy_to",
-    "reduce_from", "gather_from", "all_to_all",
+    "reduce_from", "gather_from", "all_to_all", "Cut", "spec_cuts", "spec_cut", "dim_cut", "batch_cut",
+    "map_specs", "shard", "shard_tree", "unshard", "unshard_tree", "global_shape",
+    "gather_dim", "group_of",
 ]

@@ -10,9 +10,17 @@ step is the eager program itself.  So a cell runs the port's real
 ``make_encoder_step`` once, on ``FakeTensorMode`` tensors (shapes, dtypes
 and devices, no data, no card memory), as rank 0 of the production mesh of
 256 or 512 ranks on the ``fake`` process-group backend, in this process.
-Every rank holds what today's program gives it: whole parameters, whole
-Adam states, and its data-parallel share of the batch (rows over the mesh
-axes of ``"batch"``/``"decode_batch"``; ``launch/train.py``).
+Every rank holds what the port's program gives it (``launch/train.py``):
+its part of every parameter and Adam moment that ``tree_shardings`` cuts
+(the ``"model"`` axis), its data-parallel share of the batch (rows over
+the mesh axes of ``"batch"``/``"decode_batch"``), and decode caches whose
+kv heads (and RWKV state heads) are cut where the blocks cut them.  Not
+ported, and so whole on every rank of ``"model"``: the reference's
+sequence-sharded decode caches (``"kv_seq_model"``, given where the kv
+heads do not divide the model axis, and the long-context rules'
+``"kv_seq"``) and a mamba2 block's state (that block runs whole); a record
+names them under ``"uncut_cache_axes"``.  Int8 ``QTensor`` weights under a
+cut model axis are not ported either (``--quantize`` raises).
 
 A cell records:
 
@@ -127,6 +135,8 @@ SCAN_KINDS = ("mamba2", "mamba2_shared", "rwkv6")
 SCAN_SEQ = 64
 #: logical axes over which a rank holds a share of the data
 _DATA_AXES = ("batch", "decode_batch")
+#: a decode cache's logical axes the blocks cut (with the data's)
+_CACHE_AXES = _DATA_AXES + ("kv_heads", "heads")
 #: ops that alias their input or allocate without writing: no bytes moved
 _NO_BYTES = ("_unsafe_view", "_reshape_alias", "empty", "empty_like", "empty_strided",
              "new_empty", "new_empty_strided")
@@ -208,13 +218,15 @@ class StepMeter(TorchDispatchMode):
 # ---------------------------------------------------------------------------
 
 
-def _local(rules: ShardingRules, logical, meta: torch.Tensor) -> tuple[int, ...]:
-    """``meta``'s shape on one rank: each data axis divided over the mesh
-    axes the rules give it (the divisibility fallback keeps it whole)."""
+def _local(rules: ShardingRules, logical, meta: torch.Tensor,
+           names: Optional[tuple[str, ...]] = None) -> tuple[int, ...]:
+    """``meta``'s shape on one rank: each dimension whose logical axis is in
+    ``names`` (every cut dimension when ``None``) divided over the mesh
+    axes its spec gives it (the divisibility fallback keeps it whole)."""
     spec = rules.spec(logical, dims=tuple(meta.shape))
     shape = []
     for dim, name, axes in zip(meta.shape, logical, spec):
-        if name in _DATA_AXES and axes is not None:
+        if axes is not None and (names is None or name in names):
             dim //= rules.size((axes,) if isinstance(axes, str) else axes)
         shape.append(dim)
     return tuple(shape)
@@ -224,13 +236,18 @@ def _empty(shape, dtype, dev) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=dev)
 
 
-def _materialise(tree, dev):
-    """Empty tensors like ``tree``'s, keys in sorted order as
-    ``init_from_specs`` builds real params (the functional Adam's leaf
-    order, and so the step's peak, follows it)."""
+def _materialise(tree, logical, rules: ShardingRules, dev):
+    """Empty tensors like ``tree``'s, each this rank's part of its spec
+    (:func:`_local`), keys in sorted order as ``init_from_specs`` builds
+    real params (the functional Adam's leaf order, and so the step's peak,
+    follows it)."""
     if isinstance(tree, dict):
-        return {k: _materialise(tree[k], dev) for k in sorted(tree)}
-    return _empty(tree.shape, tree.dtype, dev)
+        return {k: _materialise(tree[k], logical[k], rules, dev) for k in sorted(tree)}
+    return _empty(_local(rules, logical, tree), tree.dtype, dev)
+
+
+def _model_cut(rules: ShardingRules) -> bool:
+    return rules.shape.get("model", 1) > 1
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules, n_micro: int, *,
@@ -240,7 +257,10 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules, n_micro:
     ``FakeTensorMode``, so nothing is allocated).  A decode cell's ``pos``
     is the Python int ``seq_len - 1`` (the step reads it with ``int``)."""
     dev = torch.device(device)
-    params = _materialise(T.abstract_params(cfg), dev)
+    if quantize and _model_cut(rules):
+        raise NotImplementedError("quantize: int8 QTensor shards over a cut \"model\" axis are "
+                                  "not ported (ROADMAP Queue 1: QTensor shards)")
+    params = _materialise(T.abstract_params(cfg), T.logical_axes(cfg), rules, dev)
     if quantize:
         # the served int8 weights, baked from the (fake) params: the
         # reference's ``abstract_quantized`` gives one scale per channel of
@@ -262,7 +282,8 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules, n_micro:
             return make_encoder_step(cfg), (params, batch)
         return make_prefill_step(cfg, max_seq=shape.seq_len), (params, batch)
     acache, clogical = cache_specs(cfg, shape, model_axis_size=rules.shape.get("model", 1))
-    caches = _map_logical(lambda a, lg: _empty(_local(rules, lg, a), a.dtype, dev), acache, clogical)
+    caches = _map_logical(lambda a, lg: _empty(_local(rules, lg, a, _CACHE_AXES), a.dtype, dev),
+                          acache, clogical)
     return make_decode_step(cfg, max_seq=shape.seq_len), (params, batch["token"], caches,
                                                           shape.seq_len - 1)
 
@@ -275,14 +296,31 @@ def _map_logical(fn, tree, logical):
 
 
 def prepare_groups(rules: ShardingRules) -> None:
-    """Build the groups of the data axes outside any ``FakeTensorMode``: a
-    group over several mesh axes is made on first use from the mesh's rank
-    tensor, which a fake mode would not take (a one-axis group is the
-    mesh's own)."""
-    for name in _DATA_AXES:
+    """Build the groups of the data and parameter axes outside any
+    ``FakeTensorMode``: a group over several mesh axes is made on first use
+    from the mesh's rank tensor, which a fake mode would not take (a
+    one-axis group is the mesh's own)."""
+    for name in rules.rules:
         axes = rules.mesh_axes_for(name)
         if axes and rules.size(axes) > 1:
             rules.group(axes)
+
+
+def uncut_cache_axes(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules) -> list[str]:
+    """The logical axes of a decode cell's caches that the reference's rules
+    cut and the port holds whole (not ported: ROADMAP Queue 1)."""
+    if shape.kind != "decode":
+        return []
+    _, clogical = cache_specs(cfg, shape, model_axis_size=rules.shape.get("model", 1))
+    axes = {a for lg in _leaves_logical(clogical) for a in lg}
+    return [a for a in ("kv_seq_model", "kv_seq", "ssm_heads")
+            if a in axes and rules.size(rules.mesh_axes_for(a)) > 1]
+
+
+def _leaves_logical(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_logical(v)]
+    return [tree]
 
 
 def trace_cell(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules, n_micro: int, *,
@@ -501,6 +539,7 @@ def run_cell(
         else:
             v = trace_cell(cfg, shape, rules, n_micro, quantize=quantize, device=dev)
         v["memory"]["fits_80gb"] = fits(v["memory"])
+        v["uncut_cache_axes"] = uncut_cache_axes(cfg, shape, rules)
         v["fallbacks"] = sorted(set(map(tuple, rules.fallbacks)))
         rec.update(v, status="ok")
         if verbose:

@@ -7,12 +7,19 @@ optional int8 gradient compression, with the reference's flags plus
 ``--device`` (``cuda`` by default; without a GPU that raises unless
 ``--device cpu``).
 
-Data parallel over the mesh's batch axes: with ``torch.distributed``
-initialised by the caller (one rank a device), each rank takes its rows of
-the global batch and the step all-reduces the gradients and the loss to the
-global mean (``training/lm.py``).  Parameters are replicated: tensor
-parallelism over ``"model"`` (the reference's GSPMD parameter sharding) is
-not ported.  Rank 0 prints and writes the checkpoints.
+Data and tensor parallel: with ``torch.distributed`` initialised by the
+caller (one rank a device), each rank takes its rows of the global batch
+and the step all-reduces the gradients and the loss over the batch axes
+to the global mean (``training/lm.py``).  Parameters and their Adam
+moments are placed as the reference places them, by
+``tree_shardings(rules, abstract_params, logical_axes)``: each rank holds
+its part of every leaf the mesh's ``"model"`` axis cuts
+(``distributed/sharding.shard_tree``), and the blocks run the collectives
+that make the result the whole model's.  Checkpoints gather whole leaves
+(every rank saves, rank 0 writes) and restore onto the current mesh,
+whatever mesh wrote them.  Rank 0 prints.  The SIGTERM hook sets a flag
+that the loop reads after each step; the ranks agree on it and then save
+together and exit 143.
 
 One difference from the reference, on resume: the loader starts at the
 restored step's batch (the reference's restarts from batch 0, so a resumed
@@ -34,13 +41,19 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import PrefetchingLoader, synthetic_lm_batches
-from repro_torch.distributed.sharding import ShardingRules, mesh_shape, use_rules
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    mesh_shape,
+    shard_tree,
+    tree_shardings,
+    use_rules,
+)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import transformer as T
-from repro_torch.training.checkpoint import CheckpointManager
+from repro_torch.training.checkpoint import CheckpointManager, any_rank
 from repro_torch.training.lm import TrainSettings, make_train_step, shard_rows
-from repro_torch.training.optimizer import Adam, cosine_warmup_schedule
+from repro_torch.training.optimizer import Adam, AdamState, cosine_warmup_schedule
 
 
 def _rows(make, rules: ShardingRules, start: int, n_micro: int):
@@ -108,16 +121,15 @@ def main(argv=None):
     )
 
     with use_rules(rules):
-        params = T.init_params(0, cfg, device=dev)
+        pspecs = tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+        params = shard_tree(T.init_params(0, cfg, device=dev), pspecs, rules, device=dev)
         opt_state = opt.init(params)
 
         ckpt = CheckpointManager(Path(args.ckpt_dir) / cfg.name.replace("/", "_"),
-                                 save_every=args.ckpt_every)
+                                 save_every=args.ckpt_every,
+                                 shardings=(pspecs, AdamState(None, pspecs, pspecs)))
         start_step, (params, opt_state) = ckpt.maybe_restore((params, opt_state), device=dev)
-        state_ref = {"step": start_step, "params": params, "opt": opt_state}
-        if lead:  # only rank 0 writes; the others take SIGTERM's default
-            ckpt.install_preemption_hook(
-                lambda: (state_ref["step"], (state_ref["params"], state_ref["opt"])))
+        ckpt.install_preemption_hook()
 
         loader = PrefetchingLoader(
             _rows(synthetic_lm_batches(cfg.vocab, args.batch, args.seq, n_steps=args.steps),
@@ -135,21 +147,27 @@ def main(argv=None):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0
-            state_ref.update(step=step + 1, params=params, opt=opt_state)
             losses.append(loss)
             ema = dt if ema is None else (0.9 * ema + 0.1 * dt) if i > 2 else dt
             if i > 5 and dt > args.straggler_factor * ema:
                 stragglers += 1
                 log(f"[straggler] step {step}: {dt:.2f}s vs ema {ema:.2f}s ({stragglers})")
-                if stragglers >= args.max_straggler_steps:
-                    if lead:
-                        ckpt.save(step + 1, (params, opt_state), extra={"straggler_exit": True})
-                    log("[straggler] persistent skew -> checkpoint + EX_TEMPFAIL")
-                    loader.close()
-                    raise SystemExit(75)
             else:
                 stragglers = 0
-            if lead and ckpt.should_save(step + 1):
+            # every rank stops at the same boundary (the saves are collective)
+            preempted, give_up = any_rank((ckpt.preempt_requested,
+                                           stragglers >= args.max_straggler_steps), dev)
+            if preempted:
+                ckpt.save_emergency(step + 1, (params, opt_state))
+                log(f"[preempted] SIGTERM: checkpointed step {step + 1}")
+                loader.close()
+                raise SystemExit(143)
+            if give_up:
+                ckpt.save(step + 1, (params, opt_state), extra={"straggler_exit": True})
+                log("[straggler] persistent skew -> checkpoint + EX_TEMPFAIL")
+                loader.close()
+                raise SystemExit(75)
+            if ckpt.should_save(step + 1):
                 ckpt.save(step + 1, (params, opt_state))
             if step % args.log_every == 0:
                 log(f"step {step}: loss={loss:.4f} ({dt:.2f}s/step)")
@@ -159,8 +177,7 @@ def main(argv=None):
                 f"done: {n} steps in {time.time()-t_start:.1f}s; "
                 f"loss {losses[0]:.4f} -> {np.mean(losses[-10:]):.4f}"
             )
-        if lead:
-            ckpt.save(start_step + n, (params, opt_state))
+        ckpt.save(start_step + n, (params, opt_state))
         loader.close()
     return losses
 

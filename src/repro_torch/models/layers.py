@@ -24,6 +24,20 @@ approximation, so every GELU here is ``approximate="tanh"``.  The
 reference's sharding annotations (``constrain``, ``kv_seq_axis``) are
 left out: the port places tensors by process group, and
 ``distributed/sharding.constrain`` is an identity.
+
+Tensor parallelism (Megatron-style, cut by the specs alone).  Under
+active rules a leaf is this rank's part of its spec (``sharding.dim_cut``
+says which dimensions are cut).  Attention: ``wq``/``wo`` cut over
+``"heads"`` and ``wk``/``wv`` over ``"kv_heads"``; the normed input enters
+through ``copy_to`` and ``wo``'s partial product leaves through
+``reduce_from``.  Where the heads are cut and the kv heads are not
+(GQA/MQA with few kv heads), ``wk``/``wv`` are whole: they enter through
+``copy_to`` (each rank reads only its query heads' kv heads), k and v are
+computed whole (so a decode cache is whole, and the same, on every rank),
+and each local query head reads the kv head of its *global* index.  Where
+the heads are not cut the block runs whole, with no collective.  The MLP:
+``wi*`` column-parallel over ``"mlp"``, ``wo`` row-parallel, ``copy_to``
+in and ``reduce_from`` out.
 """
 from __future__ import annotations
 
@@ -36,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.distributed import sharding as SH
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -196,10 +211,47 @@ def attn_cache_shape(cfg: ArchConfig, batch: int, max_seq: int, window: Optional
     return AttnCacheSpec(length=max_seq, ring=False)
 
 
-def _qkv(p, x, cfg: ArchConfig, positions):
+def attn_cuts(cfg: ArchConfig) -> tuple[Optional[SH.Cut], Optional[SH.Cut]]:
+    """The cuts of the query heads (``wq``/``wo``) and of the kv heads
+    (``wk``/``wv``) under the active rules; ``None`` where whole."""
+    s = attn_specs(cfg)
+    return (SH.dim_cut(s["wq"].logical, s["wq"].shape, 1),
+            SH.dim_cut(s["wk"].logical, s["wk"].shape, 1))
+
+
+def _tp_in(p, h, heads, kv):
+    """The normed input and ``wk``/``wv`` as this rank's heads read them:
+    through ``copy_to`` where the query heads are cut (a whole ``wk``/``wv``
+    too, since a rank reads only some of its kv heads)."""
+    g = SH.group_of(heads)
+    wk, wv = p["wk"], p["wv"]
+    if heads is not None and kv is None:
+        wk, wv = SH.copy_to(wk, g), SH.copy_to(wv, g)
+    return SH.copy_to(h, g), wk, wv
+
+
+def _kv_for_heads(k, v, cfg: ArchConfig, heads, kv):
+    """k and v (..., Hkv, Dh) as this rank's query heads read them: as
+    they are unless the query heads are cut over whole kv heads; then the
+    kv heads of the local heads' global indices, a slice where they group
+    evenly, else one kv head a local head."""
+    if heads is None or kv is not None:
+        return k, v
+    hl = cfg.n_heads // heads.size
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = heads.index * hl
+    want = [(first + i) // g for i in range(hl)]
+    lo, n = want[0], want[-1] - want[0] + 1
+    if hl % n == 0 and all(w - lo == i // (hl // n) for i, w in enumerate(want)):
+        return k.narrow(-2, lo, n), v.narrow(-2, lo, n)
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(-2, idx), v.index_select(-2, idx)
+
+
+def _qkv(p, x, cfg: ArchConfig, positions, wk, wv):
     q = qeinsum("bsd,dhk->bshk", x, p["wq"])
-    k = qeinsum("bsd,dhk->bshk", x, p["wk"])
-    v = qeinsum("bsd,dhk->bshk", x, p["wv"])
+    k = qeinsum("bsd,dhk->bshk", x, wk)
+    v = qeinsum("bsd,dhk->bshk", x, wv)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -284,13 +336,16 @@ def attn_fwd(
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
+    heads, kvc = attn_cuts(cfg)
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    q, k, v = _qkv(p, h, cfg, positions)
+    h, wk, wv = _tp_in(p, h, heads, kvc)
+    q, k, v = _qkv(p, h, cfg, positions, wk, wv)
+    kq, vq = _kv_for_heads(k, v, cfg, heads, kvc)
     if s <= ATTN_CHUNK:
-        out = _dense_attention(q, k, v, cfg, window, cfg.causal)
+        out = _dense_attention(q, kq, vq, cfg, window, cfg.causal)
     else:
-        out = _chunked_attention(q, k, v, cfg, window, cfg.causal)
-    y = qeinsum("bshk,hkd->bsd", out, p["wo"])
+        out = _chunked_attention(q, kq, vq, cfg, window, cfg.causal)
+    y = SH.reduce_from(qeinsum("bshk,hkd->bsd", out, p["wo"]), SH.group_of(heads))
     cache = None
     if emit_cache is not None:
         L = emit_cache.length
@@ -336,18 +391,21 @@ def attn_decode(
     the cache passed in is left as it was."""
     b = x.shape[0]
     pos = int(pos)
+    heads, kvc = attn_cuts(cfg)
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    h, wk, wv = _tp_in(p, h, heads, kvc)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, h, cfg, positions)  # (B, 1, H/Hkv, Dh)
+    q, k, v = _qkv(p, h, cfg, positions, wk, wv)  # (B, 1, H/Hkv, Dh)
     L = spec.length
     slot = cache_slot(pos, spec)
     ck, cv = cache["k"].clone(), cache["v"].clone()
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
-    hq, kvh, dh = q.shape[2], ck.shape[2], q.shape[3]
+    kq, vq = _kv_for_heads(ck, cv, cfg, heads, kvc)
+    hq, kvh, dh = q.shape[2], kq.shape[2], q.shape[3]
     g = hq // kvh
     qg = q.reshape(b, kvh, g, dh)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, ck).to(torch.float32)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, kq).to(torch.float32)
     scores = torch.div(scores, torch.tensor(math.sqrt(dh), dtype=torch.float32,
                                             device=x.device))
     t = torch.arange(L, device=x.device)
@@ -363,8 +421,8 @@ def attn_decode(
             valid &= t > pos - window
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(cv.dtype)
-    out = torch.einsum("bkgt,btkd->bkgd", w, cv).reshape(b, 1, hq, dh)
-    y = qeinsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    out = torch.einsum("bkgt,btkd->bkgd", w, vq).reshape(b, 1, hq, dh)
+    y = SH.reduce_from(qeinsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), SH.group_of(heads))
     return x + y, {"k": ck, "v": cv}
 
 
@@ -395,8 +453,16 @@ def mlp_specs(cfg: ArchConfig) -> dict:
     return base
 
 
+def mlp_cut(cfg: ArchConfig) -> Optional[SH.Cut]:
+    """The cut of the MLP's hidden (``"mlp"``) dimension, ``None`` where
+    whole."""
+    s = mlp_specs(cfg)["wo"]
+    return SH.dim_cut(s.logical, s.shape, 0)
+
+
 def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    grp = SH.group_of(mlp_cut(cfg))
+    h = SH.copy_to(rmsnorm(p["norm"], x, cfg.norm_eps), grp)
     if cfg.mlp_kind in ("swiglu", "geglu"):
         act = F.silu if cfg.mlp_kind == "swiglu" else gelu
         g = act(qeinsum("bsd,df->bsf", h, p["wi_gate"]))
@@ -405,4 +471,4 @@ def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         ff = gelu(qeinsum("bsd,df->bsf", h, p["wi"]))
         y = qeinsum("bsf,fd->bsd", ff, p["wo"])
-    return x + y
+    return x + SH.reduce_from(y, grp)

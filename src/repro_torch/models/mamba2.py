@@ -11,6 +11,16 @@ The reference's ``lax.scan`` over time is a Python loop over steps here
 (state (B, H, N, P)); decode carries (conv_state, ssm_state), O(1) in
 context.  Each step is a few small launches on the card: a host-launch
 cost, recorded, not optimised in this port.
+
+Tensor parallelism: the block runs whole on every rank.  Under active
+rules its ``"ssm_heads"`` leaves are held as this rank's part (so the
+params and their Adam moments are cut), and ``w_in``, ``conv_w``,
+``conv_b``, ``a_log``, ``d_skip``, ``dt_bias`` and ``w_out`` are gathered
+at use (``sharding.gather_dim``; the backward keeps this rank's part of
+the gradient every rank computes whole).  ``w_in``'s columns are the fused
+``[z, x, B, C, dt]`` segments, which a contiguous cut does not follow, and
+``out_norm`` normalises over all of ``d_in``, so the block does not split.
+Its decode state is whole.
 """
 from __future__ import annotations
 
@@ -18,7 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import PSpec, qeinsum, rmsnorm, rmsnorm_specs
+
+#: the cut leaves gathered at use, and the dimension each is cut on
+GATHERED = {"w_in": 1, "conv_w": 1, "conv_b": 0, "a_log": 0, "d_skip": 0, "dt_bias": 0,
+            "w_out": 0}
 
 
 def _dims(cfg: ArchConfig):
@@ -79,6 +94,9 @@ def mamba2_fwd(p, x: torch.Tensor, cfg: ArchConfig, state: dict | None = None,
     b, t, d = x.shape
     d_in, nh, pdim, n = _dims(cfg)
     st = state or {}
+    specs = mamba2_specs(cfg)
+    p = {**p, **{k: SH.gather_dim(p[k], SH.dim_cut(specs[k].logical, specs[k].shape, dim), dim)
+                 for k, dim in GATHERED.items()}}
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     proj = qeinsum("btd,de->bte", h, p["w_in"])
     z, xc, bmat, cmat, dt = torch.split(proj, [d_in, d_in, n, n, nh], dim=-1)

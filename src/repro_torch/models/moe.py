@@ -23,6 +23,13 @@ Two places where the obvious PyTorch call differs from the reference:
 the tokens, sends them to the ranks that hold their experts with one
 ``all_to_all`` and takes the results back with another, all with autograd
 (``distributed/sharding.py``'s collectives over process groups).
+
+Under active rules the expert weights are this rank's part of their spec:
+cut over ``"experts"`` where the mesh axis divides the expert count, else
+over ``"mlp"``.  The dense ``moe_fwd`` then routes every token on every
+rank (the normed tokens and the whole router enter through ``copy_to``),
+runs the experts (or the hidden slice) it holds, and sums the combine over
+the cut's group with ``reduce_from``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -77,29 +85,63 @@ def _renorm_floor(gv: torch.Tensor) -> torch.Tensor:
                          torch.tensor(1e-9, dtype=gv.dtype, device=gv.device))
 
 
+def moe_cuts(cfg: ArchConfig):
+    """The cuts of the expert weights' ``"experts"`` and ``"mlp"``
+    dimensions (at most one is cut: a mesh axis cuts one dimension)."""
+    s = moe_specs(cfg)["wi_gate"]
+    return SH.dim_cut(s.logical, s.shape, 0), SH.dim_cut(s.logical, s.shape, 2)
+
+
+def _capacity_keep(flatoh, pos, gate_idx, t: int, cfg: ArchConfig):
+    """``(cap, slots, keep)``: the capacity, the buffer's slots an expert
+    and the kept (token, k) pairs.  With the batch split over several ranks
+    (data parallel), the reference's capacity and positions are those of
+    the global batch, whose rows hold the ranks' rows in rank order: the
+    capacity is the global token count's, a pair's global position adds
+    the counts of its expert on the ranks before (one all-gather of the
+    per-expert counts), and the buffer keeps the local positions (at most
+    ``min(t, cap)`` a expert)."""
+    bc = SH.batch_cut()
+    if bc is None:
+        cap = capacity(t, cfg)
+        return cap, cap, pos < cap
+    cap = capacity(t * bc.size, cfg)
+    counts = flatoh.sum(0, dtype=torch.int32).contiguous()
+    every = [torch.empty_like(counts) for _ in range(bc.size)]
+    dist.all_gather(every, counts, group=SH.group_of(bc))
+    offset = torch.stack(every[:bc.index]).sum(0) if bc.index else torch.zeros_like(counts)
+    return cap, min(cap, t), pos + offset[gate_idx] < cap
+
+
 def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D) with residual."""
     b, s, d = x.shape
+    ecut, fcut = moe_cuts(cfg)
+    grp = SH.group_of(ecut or fcut)
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     t = b * s
-    ht = h.reshape(t, d)
+    ht = SH.copy_to(h.reshape(t, d), grp)
     e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(t, cfg)
-    _, gate_vals, gate_idx = route(ht, p["router"], cfg)
+    _, gate_vals, gate_idx = route(ht, SH.copy_to(p["router"], grp), cfg)
 
     # position of each (token, k) within its expert's capacity buffer
     flatoh = F.one_hot(gate_idx, e).to(torch.int32).reshape(t * k, e)
     pos_in_e = torch.cumsum(flatoh, dim=0, dtype=torch.int32) - flatoh  # exclusive rank
     pos = (pos_in_e * flatoh).sum(-1).reshape(t, k)  # (T, k)
-    keep = pos < cap  # capacity-dropped mask
+    cap, slots, keep = _capacity_keep(flatoh, pos, gate_idx, t, cfg)
+    # this rank's experts (all of them unless "experts" is cut)
+    e_loc = e // ecut.size if ecut else e
+    lo = ecut.index * e_loc if ecut else 0
+    if ecut:
+        keep = keep & (gate_idx >= lo) & (gate_idx < lo + e_loc)
 
     # scatter tokens into the (E, C, D) dispatch buffer
-    e_flat = torch.where(keep, gate_idx, e - 1).reshape(-1)
-    p_flat = torch.where(keep, pos, cap - 1).reshape(-1).to(torch.long)
+    e_flat = torch.where(keep, gate_idx - lo, e_loc - 1).reshape(-1)
+    p_flat = torch.where(keep, pos, slots - 1).reshape(-1).to(torch.long)
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     src = torch.where(keep.reshape(-1, 1), ht[tok_idx], torch.zeros((), dtype=ht.dtype,
                                                                        device=ht.device))
-    buf = torch.zeros((e, cap, d), dtype=h.dtype, device=x.device)
+    buf = torch.zeros((e_loc, slots, d), dtype=h.dtype, device=x.device)
     buf.index_put_((e_flat, p_flat), src, accumulate=True)  # one real writer a slot
 
     # expert computation (grouped einsum)
@@ -111,7 +153,7 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     out_tk = eo[e_flat, p_flat].reshape(t, k, d)
     out_tk = torch.where(keep[..., None], out_tk, torch.zeros((), dtype=out_tk.dtype,
                                                                device=x.device))
-    out = (out_tk * gate_vals[..., None].to(out_tk.dtype)).sum(dim=1)
+    out = SH.reduce_from((out_tk * gate_vals[..., None].to(out_tk.dtype)).sum(dim=1), grp)
     y = out.reshape(b, s, d).to(x.dtype)
     return x + y
 
@@ -122,16 +164,17 @@ def moe_fwd_a2a(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     experts and back.
 
     ``x`` is this rank's rows of the batch (every rank of the ``"model"``
-    axis holds the same rows, and every rank the whole weights).  Rank
+    axis holds the same rows, and its ``e / n_ep`` resident experts: the
+    expert weights are cut over ``"experts"``).  Rank
     ``r`` of ``"model"`` takes the ``r``-th of its rows' ``t_loc``-token
     slices, routes them with the reference's local capacity
     ``max(8, ceil8(t_loc * k / e * cf))``, packs a ``(n_ep, e_loc, cap,
     d)`` send buffer, runs its ``e_loc`` resident experts on what it
     receives, and reverses the route; the ranks' outputs are then gathered
-    back into every rank's rows.  The replicated inputs (the normed tokens,
-    router and expert weights) enter through ``copy_to``, so their
-    gradients are summed over ``"model"`` as ``shard_map`` sums a
-    replicated input's.
+    back into every rank's rows.  The replicated inputs (the normed tokens
+    and the router) enter through ``copy_to``, so their gradients are
+    summed over ``"model"`` as ``shard_map`` sums a replicated input's; a
+    resident expert's gradient is whole on its rank.
 
     Falls back to ``moe_fwd`` as the reference does: no rules active, no
     ``"model"`` axis, ``e % n_ep``, or the global token count not divisible
@@ -161,8 +204,7 @@ def moe_fwd_a2a(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     ht = SH.copy_to(h.reshape(b * s, d), group)[r * t_loc:(r + 1) * t_loc]
     router = SH.copy_to(p["router"], group)
-    wi_g, wi_u, wo = (SH.copy_to(_deq(p[n]), group)[r * e_loc:(r + 1) * e_loc]
-                      for n in ("wi_gate", "wi_up", "wo"))
+    wi_g, wi_u, wo = (_deq(p[n]) for n in ("wi_gate", "wi_up", "wo"))  # resident experts
 
     logits = torch.einsum("td,de->te", ht.to(torch.float32), router)
     probs = torch.softmax(logits, dim=-1)

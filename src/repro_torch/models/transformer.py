@@ -23,6 +23,16 @@ Entry points:
 ``jax.checkpoint(nothing_saveable)`` on its scan body): only the group's
 input is kept; the recomputation runs the same ops on the same inputs, so
 it changes no value.
+
+Tensor parallelism.  Under active rules whose ``"vocab"`` axis is cut, the
+embedding table (and ``lm_head``) is this rank's vocab part: the token
+lookup is the masked, summed one (``distributed/embedding.py``), the
+unembedding gives this rank's vocab part of the logits, ``loss_fn`` is a
+vocab-parallel cross entropy (a max all-reduce, a sum-of-exp all-reduce and
+the label's logit from its owning rank), and ``forward``,
+``forward_with_cache`` and ``decode_step`` gather whole logits.  The
+blocks cut themselves (``layers``, ``moe``, ``rwkv6``, ``mamba2``); the
+layer-stacked leading axis is never cut, so group slicing is unchanged.
 """
 from __future__ import annotations
 
@@ -31,10 +41,12 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.embedding import embedding_gather
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
@@ -63,18 +75,26 @@ def _block_specs(kind: str, cfg: ArchConfig) -> dict:
     raise ValueError(f"unknown block kind {kind!r}")
 
 
+def _tok_spec(cfg: ArchConfig) -> PSpec:
+    return PSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"))
+
+
+def _head_spec(cfg: ArchConfig) -> PSpec:
+    return PSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+
+
 def build_specs(cfg: ArchConfig) -> dict:
     d = cfg.d_model
     group = {f"pos{i}": _block_specs(k, cfg) for i, k in enumerate(cfg.pattern)}
     specs: dict = {
-        "embed": {"tok": PSpec((cfg.vocab, d), ("vocab", "embed"))},
+        "embed": {"tok": _tok_spec(cfg)},
         "groups": L.stack_specs(group, cfg.n_groups),
         "final_norm": L.rmsnorm_specs(d),
     }
     if "shared_attn" in cfg.pattern or "mamba2_shared" in cfg.pattern:
         specs["shared"] = {"attn": L.attn_specs(cfg), "mlp": L.mlp_specs(cfg)}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = PSpec((d, cfg.vocab), ("embed", "vocab"))
+        specs["lm_head"] = _head_spec(cfg)
     if cfg.frontend == "audio_frames":
         specs["frontend"] = {
             "proj": PSpec((cfg.frontend_dim, d), ("frontend", "embed")),
@@ -191,10 +211,10 @@ def embed_fwd(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
         h = L.rmsnorm(params["frontend"]["norm"], h, cfg.norm_eps)
     else:
         table = params["embed"]["tok"]
-        if cfg.sharded_embed_gather:
-            tok = embedding_gather(table, batch["tokens"])
-        else:
-            tok = table[batch["tokens"].to(device=table.device, dtype=torch.long)]
+        t = _tok_spec(cfg)
+        # a cut table takes the vocab-parallel lookup whatever
+        # ``sharded_embed_gather`` says (its result is the plain gather's)
+        tok = embedding_gather(table, batch["tokens"], SH.dim_cut(t.logical, t.shape, 0))
         if cfg.scale_embed:
             tok = tok * torch.tensor(np.sqrt(cfg.d_model), dtype=tok.dtype, device=tok.device)
         h = tok
@@ -207,12 +227,27 @@ def embed_fwd(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return h.to(act)
 
 
-def unembed(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def vocab_cut(cfg: ArchConfig) -> Optional[SH.Cut]:
+    """The cut of the unembedding's vocab dimension, ``None`` where whole."""
+    if cfg.tie_embeddings:
+        return SH.dim_cut(_tok_spec(cfg).logical, _tok_spec(cfg).shape, 0)
+    return SH.dim_cut(_head_spec(cfg).logical, _head_spec(cfg).shape, 1)
+
+
+def unembed_local(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """fp32 logits over this rank's part of the vocab (:func:`vocab_cut`;
+    all of it where whole)."""
+    h = SH.copy_to(h, SH.group_of(vocab_cut(cfg)))
     if cfg.tie_embeddings:
         logits = L.qeinsum("bsd,vd->bsv", h, params["embed"]["tok"])
     else:
         logits = L.qeinsum("bsd,dv->bsv", h, params["lm_head"])
     return logits.to(torch.float32)
+
+
+def unembed(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """fp32 logits over the whole vocab."""
+    return SH.gather_dim(unembed_local(params, h, cfg), vocab_cut(cfg), -1)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +357,15 @@ def _group_fwd(cfg: ArchConfig, shared, cache_len):
 
 def run_stack(params, x, cfg: ArchConfig, cache_len: Optional[int] = None):
     shared = params.get("shared")
-    body = _group_fwd(cfg, shared, cache_len)
+    group_fwd = _group_fwd(cfg, shared, cache_len)
+    rules = SH.active_rules()
+
+    def body(gp, x):
+        # remat recomputes the group in the backward, which autograd may run
+        # on another thread (a CUDA device's): the rules go with it
+        with SH.use_rules(rules):
+            return group_fwd(gp, x)
+
     remat = cfg.remat and cache_len is None and torch.is_grad_enabled()
     caches_list = []
     for gi in range(cfg.n_groups):
@@ -354,13 +397,17 @@ def run_stack_decode(params, x, caches, pos: int, cfg: ArchConfig, max_seq: int)
 # ---------------------------------------------------------------------------
 
 
-def forward(params, batch: dict, cfg: ArchConfig, *, last_only: bool = False) -> torch.Tensor:
+def _hidden(params, batch: dict, cfg: ArchConfig, last_only: bool) -> torch.Tensor:
     h = embed_fwd(params, batch, cfg)
     h, _ = run_stack(params, h, cfg)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
-    return unembed(params, h, cfg)
+    return h
+
+
+def forward(params, batch: dict, cfg: ArchConfig, *, last_only: bool = False) -> torch.Tensor:
+    return unembed(params, _hidden(params, batch, cfg, last_only), cfg)
 
 
 def forward_with_cache(params, batch: dict, cfg: ArchConfig, max_seq: int):
@@ -382,20 +429,25 @@ def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ArchConfig, 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
     """``(shape, dtype)`` of every cache tensor a decode step takes, layer
-    axis leading (the reference's abstract cache tree)."""
+    axis leading (the reference's abstract cache tree).  Under active
+    rules, this rank's: the kv heads where they are cut, an RWKV state's
+    heads where its time mix is cut (a mamba2 state is whole: that block
+    runs whole); ``batch`` is the rows the caller holds."""
     act = L.torch_dtype(cfg.act_dtype)
+    kvc = L.attn_cuts(cfg)[1]
+    kvh = cfg.n_kv_heads // (kvc.size if kvc else 1)
     group = {}
     for i, kind in enumerate(cfg.pattern):
         window = _window_for(kind, cfg)
         if kind in ("attn", "local", "moe", "shared_attn"):
             spec = L.attn_cache_shape(cfg, batch, max_seq, window)
-            shp = (batch, spec.length, cfg.n_kv_heads, cfg.head_dim)
+            shp = (batch, spec.length, kvh, cfg.head_dim)
             group[f"pos{i}"] = {"k": (shp, act), "v": (shp, act)}
         elif kind == "mamba2":
             group[f"pos{i}"] = M2.mamba2_state_shapes(cfg, batch)
         elif kind == "mamba2_shared":
             spec = L.attn_cache_shape(cfg, batch, max_seq, None)
-            shp = (batch, spec.length, cfg.n_kv_heads, cfg.head_dim)
+            shp = (batch, spec.length, kvh, cfg.head_dim)
             group[f"pos{i}"] = {
                 "mamba": M2.mamba2_state_shapes(cfg, batch),
                 "attn": {"k": (shp, act), "v": (shp, act)},
@@ -442,14 +494,38 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *,
     labels as the divisor: a rank holding part of a global batch divides
     its sum by the global count, so the ranks' losses (and gradients) add
     up to the whole batch's."""
-    logits = forward(params, batch, cfg)
+    logits = unembed_local(params, _hidden(params, batch, cfg, False), cfg)
     labels = batch["labels"].to(device=logits.device, dtype=torch.long)
     if cfg.frontend == "vision_patches":
         logits = logits[:, -labels.shape[1]:]  # loss over the text positions
     mask = labels >= 0
     labels_safe = torch.clamp_min(labels, 0)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    cut = vocab_cut(cfg)
+    if cut is None:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    else:
+        ll = _vocab_parallel_ll(logits.to(torch.float32), labels_safe, cut)
     if count is None:
         count = mask.sum()
     return -(ll * mask).sum() / torch.clamp_min(count, 1).to(torch.float32)
+
+
+def _vocab_parallel_ll(logits: torch.Tensor, labels: torch.Tensor, cut: SH.Cut) -> torch.Tensor:
+    """log p(label) from this rank's vocab part of the logits: the rows'
+    max all-reduced (a constant shift: no gradient), their sums of exp
+    all-reduced, and each label's logit taken on the rank that holds it
+    and all-reduced (``reduce_from``: the backward is an identity, each
+    rank keeping its part's gradient)."""
+    group = SH.group_of(cut)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    se = SH.reduce_from(torch.exp(logits - m).sum(dim=-1), group)
+    n = logits.shape[-1]
+    rel = labels - cut.index * n
+    hit = (rel >= 0) & (rel < n)
+    picked = torch.gather(logits, -1, torch.clamp(rel, 0, n - 1)[..., None])[..., 0]
+    picked = SH.reduce_from(torch.where(hit, picked, torch.zeros((), dtype=picked.dtype,
+                                                                  device=picked.device)),
+                            group)
+    return picked - m[..., 0] - torch.log(se)

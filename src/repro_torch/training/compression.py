@@ -15,7 +15,10 @@ XLA turns ``amax / 127.0`` into ``amax * float32(1/127)``; the eager
 reference divides; jitted, it also contracts the feedback's ``corrected -
 q * scale`` into an FMA.  The train step is jitted in the reference, so
 its compression is the jitted one.  The top-k takes ties in ascending index
-order, as ``lax.top_k`` does (``models.moe.top_k``).
+order, as ``lax.top_k`` does (``models.moe.top_k``).  Under tensor
+parallelism a gradient is this rank's part of a cut leaf: its scale is the
+whole leaf's (a max all-reduce over the cut's group), and the size test
+reads the whole leaf's count.
 """
 from __future__ import annotations
 
@@ -23,15 +26,22 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.f32_math import fma_f32
 from repro_torch.core.quantization import INV_127_F32
-from repro_torch.models.layers import tree_map
+from repro_torch.distributed.sharding import group_of
 from repro_torch.models.moe import top_k
 
 
-def int8_compress(g: torch.Tensor, *, jitted: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    amax = torch.clamp_min(torch.amax(torch.abs(g)), 1e-12)
+def int8_compress(g: torch.Tensor, *, jitted: bool = False,
+                  group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8; ``g`` is one rank's part of a tensor cut
+    over ``group`` where given (the scale is then the whole tensor's)."""
+    amax = torch.amax(torch.abs(g))
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    amax = torch.clamp_min(amax, 1e-12)
     if jitted:
         scale = amax * torch.tensor(INV_127_F32, dtype=torch.float32,
                                     device=amax.device).to(amax.dtype)
@@ -57,16 +67,20 @@ def compress_with_feedback(g: torch.Tensor, error: torch.Tensor, *, jitted: bool
     return q, scale, new_error
 
 
-def _round_trip(g: torch.Tensor, jitted: bool) -> torch.Tensor:
-    if g.ndim < 1 or g.numel() < 1024:
+def _round_trip(g: torch.Tensor, jitted: bool, cut=None) -> torch.Tensor:
+    if g.ndim < 1 or g.numel() * (cut.size if cut else 1) < 1024:
         return g
-    q, s = int8_compress(g, jitted=jitted)
+    q, s = int8_compress(g, jitted=jitted, group=group_of(cut))
     return int8_decompress(q, s).to(g.dtype)
 
 
-def fake_compress_grads(grads: Any, *, jitted: bool = False) -> Any:
-    """Round-trip every gradient tensor through int8."""
-    return tree_map(lambda g: _round_trip(g, jitted), grads)
+def fake_compress_grads(grads: Any, *, jitted: bool = False, cuts: Any = None) -> Any:
+    """Round-trip every gradient tensor through int8.  ``cuts`` mirrors
+    ``grads`` with each leaf's ``sharding.Cut`` (``None``: every leaf whole)."""
+    if isinstance(grads, dict):
+        return {k: fake_compress_grads(v, jitted=jitted, cuts=None if cuts is None else cuts[k])
+                for k, v in grads.items()}
+    return _round_trip(grads, jitted, cuts)
 
 
 def topk_compress(g: torch.Tensor, k_frac: float = 0.01):

@@ -22,6 +22,16 @@ gives the reference for a batch-sharded input).  Masks may hold different
 counts on different ranks; the numerator and the count are reduced, never
 per-rank means.
 
+Tensor parallel over ``"model"``: the params and Adam states are this
+rank's parts of their specs (``distributed/sharding.shard_tree``), the
+blocks run the Megatron-style collectives, and a cut leaf's gradient is
+this rank's part of the whole one, so it is summed over the batch axes
+only, as every leaf is.  A whole leaf used in full on inputs ``copy_to``
+makes identical has the same gradient on every rank of the model group
+already; one a rank uses only in part enters through ``copy_to`` in its
+block, which sums it.  The clip's global norm and the int8 round trip's
+scale read across the cut groups (``cuts``).
+
 serve steps: prefill (build the caches), decode (one token) and the
 encoder's full forward.
 """
@@ -35,6 +45,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sensitivity import value_and_grad
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import active_rules
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import tree_leaves, tree_map
@@ -62,11 +73,21 @@ def shard_rows(x, n_micro: int, n_ranks: int, idx: int):
 def _batch_group():
     """The process group of the batch axes when the active rules split the
     batch over several ranks, else ``None``."""
+    return SH.group_of(SH.batch_cut())
+
+
+def param_cuts(cfg: ArchConfig, params):
+    """Each param's whole-leaf ``sharding.Cut`` under the active rules
+    (``None`` where whole), mirroring ``params``; ``None`` when no leaf is
+    cut."""
     rules = active_rules()
     if rules is None:
         return None
-    axes = rules.mesh_axes_for("batch")
-    return rules.group(axes) if rules.size(axes) > 1 else None
+    # the PSpecs give the global shapes without making a tensor (a dry
+    # run's meter would count meta tensors made inside the step)
+    specs = SH.tree_shardings(rules, T.build_specs(cfg), T.logical_axes(cfg), record=False)
+    cuts = SH.map_specs(lambda _, spec: SH.spec_cut(spec, rules), params, specs)
+    return cuts if any(c is not None for c in tree_leaves(cuts)) else None
 
 
 def make_train_step(cfg: ArchConfig, opt: Adam, settings: TrainSettings = TrainSettings()
@@ -106,9 +127,10 @@ def make_train_step(cfg: ArchConfig, opt: Adam, settings: TrainSettings = TrainS
             dist.all_reduce(loss, group=group)
         grads = tree_map(lambda g: g.mul_(inv_n), gsum)
         del gsum  # so that the compression's input is freed as it returns
+        cuts = param_cuts(cfg, params)
         if settings.compress_pod_grads:
-            grads = fake_compress_grads(grads, jitted=True)
-        new_params, new_opt = opt.update(grads, opt_state, params)
+            grads = fake_compress_grads(grads, jitted=True, cuts=cuts)
+        new_params, new_opt = opt.update(grads, opt_state, params, cuts=cuts)
         return new_params, new_opt, {"loss": loss * inv_n}
 
     return train_step

@@ -12,7 +12,10 @@ norm sums in the reference's order, while the detector's (``w``, ``b``,
 ``alpha`` a layer) keep the order its seeded training was calibrated with.
 The update works leaf by leaf (clip, moments, step), so beyond the new
 params and moments it holds one leaf's temporaries, never a clipped copy
-of the whole gradient tree.
+of the whole gradient tree.  Under tensor parallelism each leaf is this
+rank's part and its moments are parts alike, with no change to the update;
+only the clip's global norm reads across ranks (``cuts``: a cut leaf's
+squares are summed over its group, a whole leaf's counted once).
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ import math
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import group_of
 
 
 class AdamState(NamedTuple):
@@ -71,11 +77,13 @@ class Adam:
         return self.lr(step) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params):
-        """Returns (new_params, new_state); the inputs are left as they were."""
+    def update(self, grads, state: AdamState, params, *, cuts=None):
+        """Returns (new_params, new_state); the inputs are left as they were.
+        ``cuts`` mirrors ``grads`` with each leaf's ``sharding.Cut`` (``None``
+        for a whole leaf), or is ``None`` where every leaf is whole."""
         scale = None
         if self.grad_clip_norm is not None:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, cuts)
             scale = torch.clamp_max(_f32(self.grad_clip_norm, gnorm) / (gnorm + 1e-9), 1.0)
         step = state.step + 1
         like = state.step
@@ -104,8 +112,26 @@ class Adam:
         return part(0), AdamState(step=step, mu=part(1), nu=part(2))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in _leaves(tree)))
+def global_norm(tree, cuts=None) -> torch.Tensor:
+    """The whole tree's l2 norm.  With ``cuts`` (a tree of ``sharding.Cut``
+    or ``None`` a leaf), the squares of the cut leaves are summed over
+    their groups (one all-reduce a group) and each whole leaf, the same on
+    every rank, is counted once."""
+    sq = lambda g: torch.sum(torch.square(g.to(torch.float32)))  # noqa: E731
+    if cuts is None:
+        return torch.sqrt(sum(sq(g) for g in _leaves(tree)))
+    total, parts = None, {}
+    for g, cut in zip(_leaves(tree), _leaves(cuts)):
+        if cut is None:
+            total = sq(g) if total is None else total + sq(g)
+        else:
+            group = group_of(cut)
+            key = id(group)
+            parts[key] = (group, sq(g) if key not in parts else parts[key][1] + sq(g))
+    for group, part in parts.values():
+        dist.all_reduce(part, group=group)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def cosine_warmup_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):

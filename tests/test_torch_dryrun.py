@@ -7,11 +7,19 @@
   a subprocess (a process has one default process group, and none may leak
   into the test process), with olmoe once more with its a2a MoE and
   vocab-parallel gather turned on.
-* gemma-2b's FLOPs equal a hand count of its step's matmuls exactly.
-* Every cell's collectives equal what the data-parallel step issues: one
-  all-reduce per gradient leaf, one for the loss and one label count per
-  microbatch over the batch group (4 ranks); with a2a and the gather, their
-  all-to-alls, all-gathers and "model"-axis all-reduces, counts and bytes.
+* gemma-2b's FLOPs equal a hand count of its step's matmuls exactly, each
+  product cut over the model axis (2 ranks) taking its part.
+* Every cell's collectives equal a hand count: the data-parallel step's
+  (one all-reduce per gradient leaf, of this rank's part of it, one for
+  the loss and one label count per microbatch over the batch group of 4
+  ranks), and the tensor-parallel ones over "model" (2 ranks): the
+  embedding's masked sum, attention's and the MLP's ``copy_to`` (backward)
+  and ``reduce_from`` (forward), the unembedding's ``copy_to``, the
+  vocab-parallel cross entropy's three all-reduces, the clip's norm; the
+  dense MoE's ``copy_to`` of its tokens and router, its combine, and its
+  global-capacity count all-gather over the batch group; with a2a its
+  all-to-alls and all-gathers; in decode, the forward's all-reduces and
+  all-gathers (RWKV's gate, mamba2's seven gathered leaves, the logits).
 * FLOPs within ``XLA_FACTOR`` of the reference's ``cost_analysis()`` for
   the same smoke cells, unrolled, at ``n_micro=1`` on one device: XLA also
   counts elementwise FLOPs, which ``FlopCounterMode`` does not (measured:
@@ -79,10 +87,91 @@ def smoke(arch, **extra):
 
 
 def leaf_bytes(cfg) -> list[int]:
+    """Each gradient leaf's fp32 bytes on one rank: its part of its spec on
+    the (2, 2, 2) mesh (a cut dimension halves)."""
+    from repro_torch.distributed import sharding as TS
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import tree_leaves
 
-    return [t.numel() * 4 for t in tree_leaves(T.abstract_params(cfg))]  # fp32 gsum
+    rules = TS.ShardingRules(_Mesh())
+    specs = TS.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+    out = []
+    for t, spec in zip(tree_leaves(T.abstract_params(cfg)),
+                       tree_leaves(TS.map_specs(lambda _, sp: [sp], T.abstract_params(cfg),
+                                                specs))):
+        n = t.numel()
+        for entry in spec[0]:
+            n //= 2 if entry == "model" else 1  # "pod"/"data" never cut a param
+        out.append(n * 4)
+    return out
+
+
+class _Mesh:
+    axis_names, shape = ("pod", "data", "model"), {"pod": 2, "data": 2, "model": 2}
+
+
+def expected(arch, kind, extra) -> dict:
+    """The cell's collectives by hand: ``{"group_sizes", "per_op_bytes",
+    "by_dtype"}`` (comm_analysis's conventions: an all-reduce counts twice
+    its bytes, an all-gather its result)."""
+    cfg = smoke(arch, **extra)
+    d, e, v, L = cfg.d_model, cfg.n_experts, cfg.vocab, cfg.n_layers
+    groups: dict = {}
+    nbytes: dict = {}
+    dtypes: dict = {}
+
+    def add(op, group, count, each, dtype="f32"):
+        factor = 2.0 if op == "all-reduce" else 1.0
+        g = groups.setdefault(op, {})
+        g[str(group)] = g.get(str(group), 0) + count
+        nbytes[op] = nbytes.get(op, 0.0) + factor * count * each
+        dtypes[dtype] = dtypes.get(dtype, 0.0) + factor * count * each
+
+    if kind == "decode":
+        rows = ROWS // 4
+        act, logits = rows * d * 4, rows * v * 4
+        add("all-reduce", 2, 1, act)  # the embedding's masked sum
+        add("all-gather", 2, 1, logits)  # the whole logits
+        if arch == "rwkv6-7b":  # time mix's wo, channel mix's cv; the gate cr
+            add("all-reduce", 2, 2 * L, act)
+            add("all-gather", 2, L, act)
+        elif arch == "zamba2-7b":  # every block's mamba2: its seven cut leaves
+            d_in = cfg.ssm_expand * d
+            nh, n, k = d_in // cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_kernel
+            for size in (d * (2 * d_in + 2 * n + nh), k * d_in, d_in, nh, nh, nh, d_in * d):
+                add("all-gather", 2, L, size * 4)
+            add("all-reduce", 2, 2 * cfg.n_groups, act)  # the shared attention and MLP
+        else:  # attention's wo and the MLP's wo, every layer
+            add("all-reduce", 2, 2 * L, act)
+        return {"group_sizes": groups, "per_op_bytes": nbytes, "by_dtype": dtypes}
+
+    leaves = leaf_bytes(cfg)
+    add("all-reduce", 4, len(leaves), sum(leaves) / len(leaves))  # gradient sums
+    add("all-reduce", 4, 1, 4)  # the loss
+    add("all-reduce", 4, N_MICRO, 8, "s64")  # the label counts
+    t = ROWS // 4 // N_MICRO * SEQ  # a micro's tokens on a rank
+    act = t * d * 4
+    per_micro = {"act": 1 + 1, "tok": 3, "router": 0}  # embedding, unembedding; the CE's
+    per_micro["act"] += 2 * L  # attention: copy_to, reduce_from
+    if "moe" in cfg.pattern and extra.get("moe_impl") == "a2a":
+        t_loc = SEQ * 4 // 8  # the global tokens of a micro over 4 batch x 2 model shards
+        cap = max(8, -(-int(t_loc * cfg.top_k / e * cfg.capacity_factor) // 8) * 8)
+        per_micro["act"] += L  # the tokens' copy_to
+        per_micro["router"] = L
+        add("all-to-all", 2, 4 * N_MICRO * L, e * cap * d * 4)
+        add("all-gather", 2, N_MICRO * L, 2 * t_loc * d * 4)
+    elif "moe" in cfg.pattern:
+        per_micro["act"] += 2 * L  # the tokens' copy_to, the combine's reduce_from
+        per_micro["router"] = L
+        add("all-gather", 4, N_MICRO * L, 4 * e * 4, "s32")  # the experts' counts
+    else:
+        per_micro["act"] += 2 * L  # the MLP's copy_to, reduce_from
+    add("all-reduce", 2, N_MICRO * per_micro["act"], act)
+    add("all-reduce", 2, N_MICRO * per_micro["tok"], t * 4)
+    add("all-reduce", 2, N_MICRO * per_micro["router"], d * e * 4)
+    add("all-reduce", 2, 1, 4)  # the clip's norm: the cut leaves' squares
+    groups = {op: {g: c for g, c in gs.items() if c} for op, gs in groups.items()}
+    return {"group_sizes": groups, "per_op_bytes": nbytes, "by_dtype": dtypes}
 
 
 @pytest.mark.parametrize("i", range(len(CELLS)), ids=[f"{a}-{k}{'-a2a' if e else ''}"
@@ -94,44 +183,19 @@ def test_smoke_cell_traces_on_a_fake_2x2x2_mesh(records, i):
     assert rec["rows_per_device"] == ROWS // 4  # the batch over ("pod", "data")
     mem = rec["memory"]
     assert 0 < mem["argument_bytes"] < mem["peak_bytes"]
-    coll = rec["collectives"]
-    if kind == "decode":
-        assert coll["counts"] == {} and coll["total_bytes"] == 0
-        return
-    leaves = leaf_bytes(smoke(arch, **extra))
-    dp = len(leaves) + 1 + N_MICRO  # gradient sums, the loss, the label counts
-    dp_bytes = 2.0 * (sum(leaves) + 4 + 8 * N_MICRO)  # all-reduce: twice its bytes
-    if not extra:
-        assert coll["counts"] == {"all-reduce": dp}
-        assert coll["group_sizes"] == {"all-reduce": {"4": dp}}
-        assert coll["per_op_bytes"] == {"all-reduce": dp_bytes}
-        assert coll["by_dtype"] == {"f32": 2.0 * (sum(leaves) + 4), "s64": 16.0 * N_MICRO}
-        return
-    # a2a MoE and vocab-parallel gather over "model" (2 ranks), a micro of
-    # 1 row x 64 positions: per layer five copy_to all-reduces (normed
-    # tokens, router, three expert weights) in the backward, two
-    # all-to-alls each way, one all-gather; the gather's copy_to and
-    # reduce_from once a micro
-    cfg = smoke(arch, **extra)
-    e, k, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
-    t_loc = SEQ * 4 // 8  # the global tokens of a micro over 4 batch x 2 model shards
-    cap = max(8, -(-int(t_loc * k / e * cfg.capacity_factor) // 8) * 8)
-    n = N_MICRO * cfg.n_layers
-    model_ar = (t_loc * 2 * d + d * e + 3 * e * d * f) * 4  # h, router, experts: fp32
-    gather_ar = (cfg.vocab * d + SEQ * d) * 4  # the table's gradient, reduce_from
-    assert coll["group_sizes"] == {"all-reduce": {"4": dp, "2": 5 * n + 2 * N_MICRO},
-                                   "all-to-all": {"2": 4 * n}, "all-gather": {"2": n}}
-    assert coll["per_op_bytes"] == {
-        "all-reduce": dp_bytes + 2.0 * (n * model_ar + N_MICRO * gather_ar),
-        "all-to-all": 4.0 * n * e * cap * d * 4,
-        "all-gather": 1.0 * n * 2 * t_loc * d * 4}
+    coll, want = rec["collectives"], expected(arch, kind, extra)
+    assert coll["group_sizes"] == want["group_sizes"]
+    assert coll["per_op_bytes"] == pytest.approx(want["per_op_bytes"], rel=1e-12)
+    assert coll["by_dtype"] == pytest.approx(want["by_dtype"], rel=1e-12)
+    assert coll["counts"] == {op: sum(g.values()) for op, g in want["group_sizes"].items()}
 
 
 def test_gemma_train_flops_equal_a_hand_count(records):
     cfg = smoke("gemma-2b")
+    m = 2  # the model axis: heads, kv heads, the MLP and the vocab all cut
     b, s = ROWS // 4 // N_MICRO, SEQ
-    d, h, kv, dh, ff, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
-                           cfg.vocab)
+    d, h, kv, dh, ff, v = (cfg.d_model, cfg.n_heads // m, cfg.n_kv_heads // m, cfg.head_dim,
+                           cfg.d_ff // m, cfg.vocab // m)
     layer = (2 * b * s * d * (h + 2 * kv) * dh  # q, k, v
              + 2 * b * s * h * dh * d  # o
              + 2 * 2 * b * h * s * s * dh  # scores, weights x values
@@ -140,6 +204,43 @@ def test_gemma_train_flops_equal_a_hand_count(records):
     assert cfg.tie_embeddings and not cfg.remat and cfg.mlp_kind == "geglu"
     # backward: both operands of every matmul take a gradient (2x forward)
     assert records[0]["flops_per_device"] == 3 * forward * N_MICRO
+
+
+def test_gemma_2b_arguments_at_pod_16x16_follow_the_specs():
+    """gemma-2b's train_4k arguments on ``pod_16x16``: 0.316 B of its 2.506
+    B parameters a rank (the vocab and the MLP cut 16 ways; its 8 heads
+    and one kv head do not divide 16, so attention is whole), bf16, with
+    fp32 mu and nu, Adam's step and the rank's 16 rows of 4,096 tokens and
+    labels, each storage in 512-byte blocks, as the dry run builds them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.specs import SHAPES
+
+    class Pod:
+        axis_names, shape = ("data", "model"), {"data": 16, "model": 16}
+
+    cfg = get_config("gemma-2b")
+    d, f, v, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    attn = 2 * d * cfg.n_heads * cfg.head_dim + 2 * d * cfg.n_kv_heads * cfg.head_dim
+    leaves = [v // 16 * d, d]  # the table, the final norm
+    leaves += [L * d] * 2 + [L * d * cfg.n_heads * cfg.head_dim] * 2  # norms, wq, wo
+    leaves += [L * d * cfg.n_kv_heads * cfg.head_dim] * 2  # wk, wv
+    leaves += [L * d * f // 16] * 3  # wi_gate, wi_up, wo
+    n = sum(leaves)
+    assert n == v // 16 * d + d + L * (2 * d + attn + 3 * d * f // 16) == 315_959_296
+    assert round(n / 1e9, 3) == 0.316 and round(2_506_172_416 / 1e9, 3) == 2.506
+    norms = {d, L * d}  # fp32 leaves (the rest bf16)
+    block = lambda nb: -(-nb // 512) * 512  # noqa: E731
+    params = sum(block(x * (4 if x in norms else 2)) for x in leaves)
+    adam = 2 * sum(block(x * 4) for x in leaves) + block(4)
+    batch = 2 * block(256 // 16 * 4096 * 4)
+    with FakeTensorMode():
+        _, args = D.build_cell(cfg, SHAPES["train_4k"], ShardingRules(Pod()), 8, device="cpu")
+        got = D.StepMeter().track(args)
+    assert got == params + adam + batch
 
 
 def test_flops_within_a_factor_of_xla_cost_analysis():

@@ -173,17 +173,30 @@ def test_driver_writes_records_the_roofline_reads(tmp_path):
         assert proc.returncode == 0, proc.stderr[-3000:]
     rec = json.loads((tmp_path / "gemma-2b__decode_32k__pod_16x16.json").read_text())
     assert rec["status"] == "ok" and rec["device"] == "cpu"
-    assert rec["rows_per_device"] == 128 // 16 and rec["collectives"]["total_bytes"] == 0
+    # the model axis of 16 cuts gemma-2b's MLP (16,384) and vocab (256,000),
+    # not its 8 heads: the 18 MLPs' all-reduces and the embedding's, of bf16
+    # rows (twice their bytes), and the logits' all-gather
+    rows = 128 // 16
+    coll = 2 * 19 * rows * 2048 * 2 + rows * 256_000 * 4
+    assert rec["rows_per_device"] == rows and rec["collectives"]["total_bytes"] == coll
     assert not rec["memory"]["fits_80gb"] or rec["memory"]["peak_bytes"] <= 80e9
     skip = json.loads((tmp_path / "gemma-2b__long_500k__pod_16x16.json").read_text())
     assert skip["status"] == "skip" and "sub-quadratic" in skip["reason"]
     from repro_torch.launch import roofline
 
     (cell,) = roofline.load_cells(tmp_path)
-    assert cell["dominant"] == "memory" and cell["t_collective_s"] == 0
+    assert cell["dominant"] == "memory" and cell["t_collective_s"] == pytest.approx(
+        coll / roofline.NVLINK_BYTES_PER_S)
     assert cell["model_flops"] == 2.0 * rec["n_params"] * 128
     assert cell["t_compute_s"] == pytest.approx(rec["flops_per_device"] / 989e12)
     table = roofline.markdown_table(tmp_path).splitlines()
-    assert table[2].startswith("| gemma-2b | decode_32k | 7.") and table[2].endswith("memory |")
+    # a rank's decode FLOPs: attention whole (q, k, v, o; scores and values
+    # over the 32,768-slot cache), the MLP and the unembedding a 16th
+    r, d, hd, ctx = rows, 2048, 8 * 256, 32_768
+    layer = 2 * r * d * (hd + 2 * 256) + 2 * r * hd * d + 2 * 2 * r * hd * ctx \
+        + 3 * 2 * r * d * 16_384 // 16
+    assert rec["flops_per_device"] == 18 * layer + 2 * r * d * 256_000 // 16
+    assert table[2].startswith("| gemma-2b | decode_32k | 4.371e+10") and table[2].endswith(
+        "memory |")
     assert table[-1] == ("- skip x long_500k: gemma-2b (pod_16x16): pure full-attention "
                          "arch: long_500k needs sub-quadratic attention")

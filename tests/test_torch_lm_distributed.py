@@ -8,7 +8,8 @@ forced host devices on the same mesh shape, ``("data", "model")`` = (2, 2).
 * ``moe_fwd_a2a`` and ``embedding_gather`` at 4 ranks against the
   reference's own ``shard_map`` programs, within the reference's own
   bounds (``tests/test_distributed_ops.py``: forward 2e-4, gradient 1e-4,
-  gather 1e-6);
+  gather 1e-6), each rank holding its experts and its rows of the table as
+  the specs place them;
 * a 2-rank data-parallel train step (labels masked unevenly across the
   ranks) against the 1-rank step on the whole batch;
 * ``ShardingRules.spec`` and its fallbacks against the reference's on
@@ -87,10 +88,12 @@ PORT_COLLECTIVES = textwrap.dedent(
     import numpy as np, torch, torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.configs.base import ArchConfig
+    from repro_torch.distributed import sharding as SH
     from repro_torch.distributed.embedding import embedding_gather
     from repro_torch.distributed.sharding import ShardingRules, use_rules
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import logical_from_specs
 
     rank, world, init, ref, out = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:]
     dist.init_process_group("gloo", init_method="file://" + init, rank=rank, world_size=world)
@@ -98,22 +101,30 @@ PORT_COLLECTIVES = textwrap.dedent(
     rules = ShardingRules(mesh)
     r = np.load(ref)
     cfg = ArchConfig(**{CFG})
-    p = {{k: torch.from_numpy(r["p_" + k]).requires_grad_(True)
-          for k in ("router", "wi_gate", "wi_up", "wo")}}
-    p["norm"] = {{"scale": torch.from_numpy(r["p_norm"]).requires_grad_(True)}}
+    whole = {{k: torch.from_numpy(r["p_" + k]) for k in ("router", "wi_gate", "wi_up", "wo")}}
+    whole["norm"] = {{"scale": torch.from_numpy(r["p_norm"])}}
+    # each rank holds its experts (the specs cut "experts" over "model")
+    specs = SH.tree_shardings(rules, MOE.moe_specs(cfg), logical_from_specs(MOE.moe_specs(cfg)))
+    p = SH.shard_tree(whole, specs, rules, device="cpu")
+    for t in (p["router"], p["wi_gate"], p["wi_up"], p["wo"], p["norm"]["scale"]):
+        t.requires_grad_(True)
     d = rules.axis_index(("data",))
     rows = slice(2 * d, 2 * d + 2)
+    tspec = rules.spec(("vocab", "embed"), (64, 16))
     with use_rules(rules):
         y = MOE.moe_fwd_a2a(p, torch.from_numpy(r["x"][rows]), cfg)
         y.sum().backward()
-        gathered = embedding_gather(torch.from_numpy(r["table"]), torch.from_numpy(r["ids"][rows]))
-    dense = MOE.moe_fwd(p, torch.from_numpy(r["x"][rows]), cfg)  # no rules: the plain path
+        table = SH.shard(torch.from_numpy(r["table"]), tspec, rules, device="cpu")
+        gathered = embedding_gather(table, torch.from_numpy(r["ids"][rows]),
+                                    SH.dim_cut(("vocab", "embed"), (64, 16), 0))
+    dense = MOE.moe_fwd(whole, torch.from_numpy(r["x"][rows]), cfg)  # no rules: the plain path
     grads = {{k: p[k].grad for k in ("router", "wi_gate", "wi_up", "wo")}}
     grads["norm"] = p["norm"]["scale"].grad
     for g in grads.values():  # each data row's rows: sum over data
         dist.all_reduce(g, group=rules.group(("data",)))
     res = {{"y": y.detach().numpy(), "dense": dense.detach().numpy(),
-            "gathered": gathered.numpy(), "d": np.int32(d)}}
+            "gathered": gathered.numpy(), "d": np.int32(d),
+            "m": np.int32(rules.axis_index(("model",)))}}
     res.update({{"g_" + k: v.numpy() for k, v in grads.items()}})
     np.savez(out, **res)
     dist.destroy_process_group()
@@ -173,17 +184,23 @@ def test_moe_a2a_and_embedding_gather_at_4_ranks_match_reference(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     ref = dict(np.load(ref_file))
     ranks = _ranks(PORT_COLLECTIVES, 4, tmp_path, ref_file)
+    e_loc = CFG["n_experts"] // 2
     for res in ranks:
         rows = slice(2 * int(res["d"]), 2 * int(res["d"]) + 2)
+        mine = slice(int(res["m"]) * e_loc, (int(res["m"]) + 1) * e_loc)  # its experts
         assert np.abs(res["y"] - ref["a2a"][rows]).max() < FWD_TOL
         assert np.abs(res["y"] - res["dense"]).max() < FWD_TOL  # a2a == the dense MoE
         assert np.abs(res["gathered"] - ref["table"][ref["ids"][rows]]).max() < GATHER_TOL
         assert np.abs(res["gathered"] - ref["gathered"][rows]).max() < GATHER_TOL
-        for k in ("router", "wi_gate", "wi_up", "wo", "norm"):
+        for k in ("router", "norm"):
             assert np.abs(res["g_" + k] - ref["g_" + k]).max() < GRAD_TOL, k
-    # the model axis's two ranks of a data row hold the same (whole) result
+        for k in ("wi_gate", "wi_up", "wo"):
+            assert np.abs(res["g_" + k] - ref["g_" + k][mine]).max() < GRAD_TOL, k
+    # the model axis's two ranks of a data row hold the same (whole) result,
+    # and a whole leaf's gradient is the same on every rank
     assert np.array_equal(ranks[0]["y"], ranks[1]["y"])
-    assert np.array_equal(ranks[0]["g_wo"], ranks[3]["g_wo"])
+    assert np.array_equal(ranks[0]["g_router"], ranks[3]["g_router"])
+    assert np.array_equal(ranks[0]["g_wo"], ranks[2]["g_wo"])  # the same experts
 
 
 #: a 2-rank data-parallel step against the 1-rank step on the whole batch

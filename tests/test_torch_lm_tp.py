@@ -1,0 +1,573 @@
+"""Tensor parallelism over ``"model"``: the port's sharded train step at 4
+gloo ranks against the reference's GSPMD step and the port's own 1-rank
+step.
+
+The port's ranks are ``torch.distributed`` processes on ``gloo`` (a
+``file://`` rendezvous in the test's directory); each holds its part of
+every leaf the mesh cuts (``sharding.shard_tree`` by ``tree_shardings``)
+and its rows of the batch.  The reference runs the same step jitted on 4
+forced host devices, its params placed by its own ``tree_shardings``, in
+two subprocesses (one a mesh).  Both start from the port's seeded weights
+(``init_params(0)``, carried as numpy) and ``test_torch_lm_train``'s batch.
+
+Cases: the ten architectures' smoke configs (fp32) on the ("data",
+"model") meshes (2, 2) and (1, 4), and gemma-2b with 6 heads (``h6``),
+whose attention the model axis of 4 does not cut.  At 2 the smoke configs'
+kv heads (1, 2 or 4) divide the model axis except gemma-2b's single kv
+head; at 4 only the 4-kv-head ones do.  gemma-2b and olmoe also take the
+step as ``launch.train`` does, with Adam's clip at 1.0 (their gradient
+norms are 12 and 40), and with the clip and the int8 gradient round trip:
+``mu`` (0.1 x the clipped gradient) then reads the clip's scale, whose
+norm sums the cut leaves' squares over the model group.  The cross-rank
+norm and int8 scale are also held directly on seeded gradients
+(``cross_rank_update``).  Planted in a copy of the port, each of these
+faults fails a test here: the cut leaves' squares not all-reduced, whole
+leaves counted twice, a per-rank int8 amax, the int8 size test on a part.
+
+Limits.  A rank sums its contractions (the heads' ``wo`` products, the MLP's
+hidden dimension, the vocab's softmax) in parts, so the step moves as far
+as fp32 rounding moves it; ``test_torch_lm_train``'s limits hold each metric
+to ``ULPS`` (8) times what a one-ulp nudge of every weight moves it by in
+the reference on the same mesh, or to its floor.  Measured (CPU): at most
+0.49 of its limit against the reference (h2o-danube-3-4b's ``mu`` at 1x4,
+3.9 times the nudge's change) and 0.11 against the port's 1-rank step.
+The data-parallel test's fixed ``DP_*`` limits are below a nudge's effect
+here (gemma-2b's ``mu`` moves by 2.1e-5 of its scale under a nudge, the
+sharded step by 1.2e-5), so the comparison with the port's 1-rank step
+takes the same nudge-scaled limits.  The clipped steps: at most 0.23 of
+the limit against the reference (olmoe's params at 1x4); with int8, ``mu``
+sits at 0.125 of it in every case, one int8 step of a value on a rounding
+edge, which the nudge moves as well.  Serving: at most 1.9e-5 of the
+logits' scale (``SERVE_RTOL`` 2e-4).
+"""
+import functools
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro.configs import lm_arch_names  # noqa: E402
+from repro_torch.configs import get_config as tget_config  # noqa: E402
+from repro_torch.distributed import sharding as TS  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.training import lm as TLM  # noqa: E402
+from repro_torch.training import optimizer as TO  # noqa: E402
+from test_torch_lm_train import (  # noqa: E402
+    EPS,
+    LR,
+    N_MICRO,
+    abs_err,
+    limits,
+    np_tree,
+    rel_err,
+    train_batch,
+    within_limits,
+)
+
+pytestmark = pytest.mark.slow  # multi-process, like tests/test_distributed_ops.py
+
+ROOT = Path(__file__).resolve().parents[1]
+MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+#: case name -> (architecture, config overrides on its smoke config)
+CASES = {a: (a, {}) for a in lm_arch_names()}
+CASES["gemma-2b-h6"] = ("gemma-2b", {"n_heads": 6})
+#: step variants: suffix -> (Adam's clip at ``CLIP``, the int8 gradient
+#: round trip ``compress_pod_grads``); the base variant ("") neither
+VARIANTS = {"": (False, False), "+clip": (True, False), "+clip+int8": (True, True)}
+#: the cases the other variants also run: one dense, one MoE
+VARIANT_CASES = ("gemma-2b", "olmoe-1b-7b")
+#: ``launch.train``'s clip norm (Adam's default); the smoke configs'
+#: gradient norms are 12 (gemma-2b) and 40 (olmoe), so it scales them
+CLIP = 1.0
+#: (result key, case, variant) of every step the worlds take
+STEPS = [(case + v, case, v) for case in CASES for v in VARIANTS
+         if not v or case in VARIANT_CASES]
+
+
+def smoke_cfg(case):
+    arch, kw = CASES[case]
+    return tget_config(arch).smoke().replace(**kw)
+
+
+REFERENCE = textwrap.dedent(
+    """\
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, "src")
+    sys.path.insert(0, "tests")
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.configs import get_config
+    from repro.distributed.sharding import ShardingRules, tree_shardings, use_rules
+    from repro.models import transformer as T
+    from repro.training import lm as LM
+    from repro.training.optimizer import Adam
+    from test_torch_lm_train import EPS, LR, N_MICRO, nudged, np_tree, to_jax, train_batch
+
+    shape, data, out = tuple(map(int, sys.argv[1].split("x"))), sys.argv[2], sys.argv[3]
+    cases, variants, steps = {CASES}, {VARIANTS}, {STEPS}
+    weights = np.load(data, allow_pickle=True).item()
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()).reshape(*shape), ("data", "model"))
+    res = {{}}
+    for key, case, variant in steps:
+        arch, kw = cases[case]
+        clip, compress = variants[variant]
+        cfg = get_config(arch).smoke().replace(**kw)
+        npp = weights[case]
+        rules = ShardingRules(mesh)
+        with mesh, use_rules(rules):
+            ps = tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+            opt = Adam(lr=LR, eps=EPS, grad_clip_norm={CLIP} if clip else None)
+            step = jax.jit(LM.make_train_step(cfg, opt, LM.TrainSettings(
+                n_micro=N_MICRO, compress_pod_grads=compress)))
+            batch = {{k: jnp.asarray(v) for k, v in train_batch(cfg).items()}}
+            for name, w in (("base", npp), ("nudged", nudged(npp))):
+                p = jax.tree_util.tree_map(jax.device_put, to_jax(w, cfg), ps)
+                p2, o2, m = step(p, opt.init(p), batch)
+                res[key + "/" + name] = {{"step_loss": float(m["loss"]),
+                                         "params": np_tree(p2), "mu": np_tree(o2.mu)}}
+    np.save(out, res, allow_pickle=True)
+    """
+).format(CASES=repr(CASES), VARIANTS=repr(VARIANTS), STEPS=repr(STEPS), CLIP=CLIP)
+
+PORT = textwrap.dedent(
+    """\
+    import sys
+    sys.path.insert(0, "src")
+    sys.path.insert(0, "tests")
+    import numpy as np, torch, torch.distributed as dist
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training import lm as TLM
+    from repro_torch.training.optimizer import Adam
+    from test_torch_lm_train import EPS, LR, N_MICRO, np_tree, train_batch
+    from test_torch_lm_tp import SERVE_ROWS, serve, serve_inputs
+
+    from test_torch_lm_tp import cross_rank_update, remat_on_another_thread
+
+    rank, world, init, data, out = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:]
+    dist.init_process_group("gloo", init_method="file://" + init, rank=rank, world_size=world)
+    cases, variants, steps = {CASES}, {VARIANTS}, {STEPS}
+    weights = np.load(data, allow_pickle=True).item()
+    res = {{}}
+    for mesh_name, model in (("2x2", 2), ("1x4", 4)):
+        rules = SH.ShardingRules(make_host_mesh(model=model, device="cpu"))
+        mgroup = rules.group(("model",))
+        res[mesh_name + "/remat_thread"] = remat_on_another_thread(rules)
+        res[mesh_name + "/update"] = cross_rank_update(rules)
+        for key, case, variant in steps:
+            arch, kw = cases[case]
+            clip, compress = variants[variant]
+            cfg = get_config(arch).smoke().replace(**kw)
+            whole = T.params_from_numpy(weights[case], cfg)
+            specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+            params = SH.shard_tree(whole, specs, rules, device="cpu")
+            # each local shape is its spec applied to the global shape
+            spec_list = []  # in leaf order (the params are built in sorted-key order)
+            SH.map_specs(lambda t, s: spec_list.append(s), whole, specs)
+            want_shapes = []
+            for w, s in zip(tree_leaves(whole), spec_list):
+                cuts = SH.spec_cuts(s, rules)
+                want_shapes.append(tuple(n // cuts[i].size if i in cuts else n
+                                         for i, n in enumerate(w.shape)))
+            shapes_ok = [tuple(t.shape) for t in tree_leaves(params)] == want_shapes
+            nd, di = rules.size(("data",)), rules.axis_index(("data",))
+            batch = {{k: torch.from_numpy(TLM.shard_rows(v, N_MICRO, nd, di))
+                      for k, v in train_batch(cfg).items()}}
+            opt = Adam(lr=LR, eps=EPS, grad_clip_norm={CLIP} if clip else None)
+            settings = TLM.TrainSettings(n_micro=N_MICRO, compress_pod_grads=compress)
+            with SH.use_rules(rules):
+                p2, o2, m = TLM.make_train_step(cfg, opt, settings)(
+                    params, opt.init(params), batch)
+                if variant:  # the step alone: shapes and serving are the base's
+                    res[mesh_name + "/" + key] = {{
+                        "step_loss": float(m["loss"]),
+                        "params": np_tree(SH.unshard_tree(p2, specs, rules)),
+                        "mu": np_tree(SH.unshard_tree(o2.mu, specs, rules))}}
+                    continue
+                # every whole leaf: its moment (0.1 x its gradient) and its
+                # new value the same bits on every rank of the model group
+                same = True
+                for spec, a, b in zip(spec_list, tree_leaves(p2), tree_leaves(o2.mu)):
+                    if SH.spec_cut(spec, rules) is None:
+                        for t in (a, b):
+                            parts = [torch.empty_like(t) for _ in range(model)]
+                            dist.all_gather(parts, t.contiguous(), group=mgroup)
+                            same &= all(torch.equal(q.view(torch.int32), t.view(torch.int32))
+                                        for q in parts)
+                wp = SH.unshard_tree(p2, specs, rules)
+                wm = SH.unshard_tree(o2.mu, specs, rules)
+                # serving on the seeded params: prefill, two decode steps
+                n = SERVE_ROWS // nd
+                srv = {{k: torch.from_numpy(v[di * n:(di + 1) * n])
+                        for k, v in serve_inputs(cfg).items()}}
+                with torch.no_grad():
+                    logits, caches_ok = serve(cfg, params, srv, T.cache_shapes)
+            res[mesh_name + "/" + case] = {{
+                "step_loss": float(m["loss"]), "params": np_tree(wp), "mu": np_tree(wm),
+                "shapes_ok": shapes_ok and caches_ok, "whole_equal": same,
+                "logits": [t.numpy() for t in logits], "rows": (di * n, (di + 1) * n)}}
+    if rank == 0:
+        np.save(out, res, allow_pickle=True)
+    dist.destroy_process_group()
+    """
+).format(CASES=repr(CASES), VARIANTS=repr(VARIANTS), STEPS=repr(STEPS), CLIP=CLIP)
+
+MESH_OF_ONE = textwrap.dedent(
+    """\
+    import sys
+    sys.path.insert(0, "src")
+    sys.path.insert(0, "tests")
+    import torch, torch.distributed as dist
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training import lm as TLM
+    from repro_torch.training.optimizer import Adam
+    from test_torch_lm_train import EPS, LR, N_MICRO, train_batch
+
+    cfg = get_config("gemma-2b").smoke()
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
+
+    def step(rules):
+        params = T.init_params(0, cfg, device="cpu")
+        opt = Adam(lr=LR, eps=EPS)  # with the clip: its norm reads the cuts
+        with SH.use_rules(rules):
+            p2, o2, m = TLM.make_train_step(cfg, opt, TLM.TrainSettings(n_micro=N_MICRO))(
+                params, opt.init(params), batch)
+        return [m["loss"]] + tree_leaves(p2) + tree_leaves(o2.mu) + tree_leaves(o2.nu)
+
+    plain = step(None)
+    host = step(SH.ShardingRules(make_host_mesh(device="cpu")))
+    dist.init_process_group("gloo", init_method="file://" + sys.argv[1], rank=0, world_size=1)
+    mesh = make_host_mesh(model=1, device="cpu")
+    one = step(SH.ShardingRules(mesh))
+    bits = lambda t: t.reshape(-1).view(torch.int32)
+    ok = all(torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))
+             for a, b, c in zip(plain, host, one))
+    print("BITWISE", ok, type(mesh).__name__)
+    dist.destroy_process_group()
+    """
+)
+
+
+def _weights(tmp: Path) -> Path:
+    path = tmp / "weights.npy"
+    np.save(path, {case: TT.params_to_numpy(TT.init_params(0, smoke_cfg(case), device="cpu"))
+                   for case in CASES}, allow_pickle=True)
+    return path
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both references and the port's 4-rank world, run concurrently."""
+    tmp = tmp_path_factory.mktemp("tp")
+    data = _weights(tmp)
+    refs = {m: subprocess.Popen([sys.executable, "-c", REFERENCE, m, str(data),
+                                 str(tmp / f"ref_{m}.npy")], cwd=ROOT, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for m in MESHES}
+    init = tmp / "rendezvous"
+    ranks = [subprocess.Popen([sys.executable, "-c", PORT, str(r), "4", str(init), str(data),
+                               str(tmp / "port.npy")], cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(4)]
+    for proc in [*refs.values(), *ranks]:
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+    ref = {}
+    for m in MESHES:
+        ref.update({f"{m}/{k}": v for k, v in
+                    np.load(tmp / f"ref_{m}.npy", allow_pickle=True).item().items()})
+    return ref, np.load(tmp / "port.npy", allow_pickle=True).item()
+
+
+#: serving: rows, prompt positions, decode steps (cache of PROMPT + DECODE)
+SERVE_ROWS, PROMPT, DECODE = 4, 12, 2
+
+
+def serve_inputs(cfg) -> dict:
+    """Seeded serving inputs: tokens (frames for an encoder)."""
+    batch = train_batch(cfg, seed=3, b=SERVE_ROWS, s=PROMPT + DECODE)
+    return {k: v for k, v in batch.items() if k in ("tokens", "frames")}
+
+
+def serve(cfg, params, inputs, cache_shapes):
+    """Logits of a prefill of ``PROMPT`` tokens and ``DECODE`` decode steps
+    on the next tokens (an encoder: its forward), and whether every cache
+    has the shape ``cache_shapes`` gives (this rank's, under the rules)."""
+    if cfg.is_encoder:
+        return [TT.forward(params, inputs, cfg)], True
+    toks, seq = inputs["tokens"], PROMPT + DECODE
+    logits, caches = TT.forward_with_cache(params, {"tokens": toks[:, :PROMPT]}, cfg, seq)
+    out = [logits]
+    want = cache_shapes(cfg, toks.shape[0], seq)
+    for i in range(DECODE):
+        logits, caches = TT.decode_step(params, toks[:, PROMPT + i:PROMPT + i + 1], caches,
+                                        PROMPT + i, cfg, seq)
+        out.append(logits)
+    return out, _shapes(caches) == _shapes(want)
+
+
+def _shapes(tree):
+    """A tree of tensors, or of ``cache_shapes``' (shape, dtype) pairs, as
+    shapes."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape) if isinstance(tree, torch.Tensor) else tuple(tree[0])
+
+
+def remat_on_another_thread(rules) -> bool:
+    """gemma-2b's smoke config with remat, sharded under ``rules``: the
+    gradients of a backward run on another thread (as autograd runs a CUDA
+    backward, on its device's thread, where the recomputed groups must
+    still see the rules) equal those of a backward on this one, bitwise."""
+    import threading
+
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    cfg = tget_config("gemma-2b").smoke().replace(remat=True)
+    specs = TS.tree_shardings(rules, TT.abstract_params(cfg), TT.logical_axes(cfg))
+    part = TS.shard_tree(TT.init_params(0, cfg, device="cpu"), specs, rules, device="cpu")
+    nd, di = rules.size(("data",)), rules.axis_index(("data",))
+    batch = {k: torch.from_numpy(TLM.shard_rows(v, 1, nd, di))
+             for k, v in train_batch(cfg).items()}
+
+    def grads(elsewhere: bool):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), part)
+        with TS.use_rules(rules):
+            loss = TT.loss_fn(p, batch, cfg)
+            if not elsewhere:
+                loss.backward()
+        if elsewhere:  # a thread that never entered the rules
+            errors = []
+
+            def run():
+                try:
+                    loss.backward()
+                except Exception as exc:  # noqa: BLE001 -- reported as a mismatch
+                    errors.append(exc)
+
+            worker = threading.Thread(target=run)
+            worker.start()
+            worker.join()
+            if errors:
+                return None
+        return [t.grad for t in tree_leaves(p)]
+
+    here, there = grads(False), grads(True)
+    return there is not None and all(b is not None and torch.equal(a, b)
+                                     for a, b in zip(here, there))
+
+
+#: the trees ``cross_rank_update`` draws: olmoe's cut experts, and
+#: zamba2's conv weights, whose parts fall under 1,024 values at 2 and 4
+UPDATE_CASES = ("olmoe-1b-7b", "zamba2-7b")
+
+
+def cross_rank_update(rules) -> dict:
+    """The update's cross-rank reductions under ``rules`` on seeded
+    gradients of ``UPDATE_CASES``' smoke trees (each leaf standard normal
+    times its own power of two in 2^-6..2^6), held whole and as this rank's
+    parts: the worst relative error of ``global_norm`` of the parts with
+    their cuts, and of the whole tree, against the whole tree's float64
+    norm; whether the int8 round trip of the parts
+    (``fake_compress_grads(jitted=True, cuts=)``), made whole, is that of
+    the whole leaves bit for bit; and how many leaves are cut, whole, and
+    cut into parts under 1,024 values from a whole of at least 1,024."""
+    import math
+
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.training.compression import fake_compress_grads
+
+    out = {"norm_rel": 0.0, "whole_norm_rel": 0.0, "compress_bitwise": True,
+           "cut_leaves": 0, "whole_leaves": 0, "small_parts": 0}
+    rng = np.random.default_rng(5)
+    for case in UPDATE_CASES:
+        cfg = smoke_cfg(case)
+        whole = tree_map(lambda t: torch.from_numpy(
+            (rng.standard_normal(t.shape) * 2.0 ** int(rng.integers(-6, 7))).astype(np.float32)),
+            TT.init_params(0, cfg, device="cpu"))
+        specs = TS.tree_shardings(rules, TT.abstract_params(cfg), TT.logical_axes(cfg))
+        parts = TS.shard_tree(whole, specs, rules, device="cpu")
+        with TS.use_rules(rules):
+            cuts = TLM.param_cuts(cfg, parts)
+            norm = float(TO.global_norm(parts, cuts))
+            trip = TS.unshard_tree(fake_compress_grads(parts, jitted=True, cuts=cuts),
+                                   specs, rules)
+        exact = math.sqrt(sum(float(np.sum(np.square(t.numpy().astype(np.float64))))
+                              for t in tree_leaves(whole)))
+        out["norm_rel"] = max(out["norm_rel"], abs(norm - exact) / exact)
+        out["whole_norm_rel"] = max(out["whole_norm_rel"],
+                                    abs(float(TO.global_norm(whole)) - exact) / exact)
+        out["compress_bitwise"] &= all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in
+            zip(tree_leaves(trip), tree_leaves(fake_compress_grads(whole, jitted=True))))
+        pairs = list(zip(tree_leaves(whole), tree_leaves(parts), tree_leaves(cuts)))
+        out["cut_leaves"] += sum(c is not None for _, _, c in pairs)
+        out["whole_leaves"] += sum(c is None for _, _, c in pairs)
+        out["small_parts"] += sum(c is not None and p.numel() < 1024 <= w.numel()
+                                  for w, p, c in pairs)
+    return out
+
+
+STEP_METRICS = ("step_loss", "params", "mu")
+
+
+def _errors(got: dict, want: dict) -> dict:
+    """``test_torch_lm_train``'s step metrics: the loss (relative), the
+    updated params (absolute) and ``mu`` (relative to each leaf's scale)."""
+    return {"step_loss": abs(got["step_loss"] - want["step_loss"]) / abs(want["step_loss"]),
+            "params": abs_err(got["params"], want["params"]),
+            "mu": rel_err(got["mu"], want["mu"])}
+
+
+@functools.lru_cache(maxsize=None)
+def one_rank(key):
+    """The port's 1-rank step (``STEPS``' ``key``) on the whole batch, no
+    rules."""
+    (case, variant), = [(c, v) for k, c, v in STEPS if k == key]
+    clip, compress = VARIANTS[variant]
+    cfg = smoke_cfg(case)
+    params = TT.init_params(0, cfg, device="cpu")
+    opt = TO.Adam(lr=LR, eps=EPS, grad_clip_norm=CLIP if clip else None)
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
+    settings = TLM.TrainSettings(n_micro=N_MICRO, compress_pod_grads=compress)
+    p2, o2, m = TLM.make_train_step(cfg, opt, settings)(params, opt.init(params), batch)
+    return {"step_loss": float(m["loss"]), "params": np_tree(p2), "mu": np_tree(o2.mu)}
+
+
+@functools.lru_cache(maxsize=None)
+def one_rank_serving(case):
+    """The port's 1-rank serving on the seeded params."""
+    cfg = smoke_cfg(case)
+    params = TT.init_params(0, cfg, device="cpu")
+    inputs = {k: torch.from_numpy(v) for k, v in serve_inputs(cfg).items()}
+    with torch.no_grad():
+        return [t.numpy() for t in serve(cfg, params, inputs, TT.cache_shapes)[0]]
+
+
+IDS = [(m, c) for m in MESHES for c in CASES]
+PARAMS = pytest.mark.parametrize("mesh,case", IDS, ids=[f"{m}-{c}" for m, c in IDS])
+#: every step: the cases' base steps (ids as ``PARAMS``') and the variants
+STEP_IDS = [(m, k) for m in MESHES for k, _, _ in STEPS]
+STEP_PARAMS = pytest.mark.parametrize("mesh,case", STEP_IDS,
+                                      ids=[f"{m}-{k}" for m, k in STEP_IDS])
+
+
+@STEP_PARAMS
+def test_sharded_step_matches_reference_gspmd_step(runs, mesh, case):
+    """Loss, params and ``mu`` against the reference's step on the same
+    mesh; with the clip, ``mu`` (0.1 x the clipped gradient) reads the
+    clip's scale, so a norm that missed or double-counted a part shows."""
+    ref, port = runs
+    want, nudge = ref[f"{mesh}/{case}/base"], ref[f"{mesh}/{case}/nudged"]
+    lim = _errors(nudge, want)
+    err = _errors(port[f"{mesh}/{case}"], want)
+    assert within_limits(err, lim), (err, limits(lim))
+
+
+@STEP_PARAMS
+def test_sharded_step_matches_port_one_rank_step(runs, mesh, case):
+    ref, port = runs
+    lim = _errors(ref[f"{mesh}/{case}/nudged"], ref[f"{mesh}/{case}/base"])
+    err = _errors(port[f"{mesh}/{case}"], one_rank(case))
+    assert within_limits(err, lim), (err, limits(lim))
+
+
+#: ``global_norm`` of seeded parts against the float64 norm of the whole
+#: tree, relative (fp32 sums of ~10^5 squares, in parts or not)
+NORM_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_clip_norm_and_int8_scale_read_whole_leaves_across_ranks(runs, mesh):
+    """``global_norm(cuts=)`` sums each cut leaf's squares over its group
+    and counts each whole leaf once; ``fake_compress_grads(cuts=)`` takes
+    the whole leaf's amax and size (a part under 1,024 values of a leaf
+    over it is still compressed): its parts, made whole, are the whole
+    leaves' round trip bit for bit."""
+    u = runs[1][f"{mesh}/update"]
+    assert u["cut_leaves"] > 0 and u["whole_leaves"] > 0 and u["small_parts"] > 0, u
+    assert u["compress_bitwise"], u
+    assert u["norm_rel"] <= NORM_RTOL and u["whole_norm_rel"] <= NORM_RTOL, u
+
+
+@PARAMS
+def test_rank_holds_its_spec_parts_and_whole_leaves_agree(runs, mesh, case):
+    """Every rank's local shapes are ``tree_shardings``' specs applied to
+    the global shapes, and every whole leaf's gradient (its moment) and
+    new value have the same bits on every rank of the model group."""
+    run = runs[1][f"{mesh}/{case}"]
+    assert run["shapes_ok"] and run["whole_equal"]
+
+
+def test_cuts_follow_divisibility():
+    """At 4 ranks of "model": a 4-kv-head smoke config cuts its kv heads, a
+    2-kv-head one keeps them whole under cut query heads, and 6 heads keep
+    the whole attention; the MLP, the vocab and the experts are cut."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    class Mesh:
+        axis_names, shape = ("data", "model"), {"data": 1, "model": 4}
+
+    with TS.use_rules(TS.ShardingRules(Mesh())):
+        olmoe, phi4, h6 = smoke_cfg("olmoe-1b-7b"), smoke_cfg("phi4-mini-3.8b"), \
+            smoke_cfg("gemma-2b-h6")
+        assert all(c is not None and c.size == 4 for c in L.attn_cuts(olmoe))
+        heads, kv = L.attn_cuts(phi4)
+        assert heads is not None and kv is None
+        assert L.attn_cuts(h6) == (None, None)
+        assert L.mlp_cut(h6) is not None and TT.vocab_cut(h6) is not None
+        assert MOE.moe_cuts(olmoe)[0] is not None and MOE.moe_cuts(olmoe)[1] is None
+
+
+def test_mesh_of_one_runs_todays_step_bitwise(tmp_path):
+    """A ``"model"`` = 1 ``DeviceMesh`` (a 1-rank gloo world) and a
+    ``HostMesh`` give the step without rules bit for bit (loss, params,
+    both moments; with the clip)."""
+    proc = subprocess.run([sys.executable, "-c", MESH_OF_ONE, str(tmp_path / "rdv")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BITWISE True DeviceMesh" in proc.stdout, proc.stdout
+
+
+#: serving logits, sharded against the 1-rank run on the same seeded params:
+#: each rank's rows of the prefill's last logits and two decode steps',
+#: relative to the logits' scale (the serving tests' 2e-4 against JAX)
+SERVE_RTOL = 2e-4
+
+
+@PARAMS
+def test_sharded_serving_matches_one_rank_serving(runs, mesh, case):
+    """Prefill (``forward_with_cache``) and decode (``decode_step``, with
+    this rank's caches: kv heads cut where they divide) of the sharded
+    params, whole logits gathered, against the 1-rank run; an encoder's
+    ``forward``."""
+    run = runs[1][f"{mesh}/{case}"]
+    lo, hi = run["rows"]
+    for got, want in zip(run["logits"], one_rank_serving(case)):
+        want = want[lo:hi]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= SERVE_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_remat_recomputes_under_the_rules_on_another_thread(runs, mesh):
+    """Autograd runs a CUDA backward on its device's own thread; the rules
+    are thread-local, so remat's recomputation must carry them there (else
+    it recomputes the groups as if the local parts were whole)."""
+    assert runs[1][f"{mesh}/remat_thread"] is True

@@ -189,3 +189,64 @@ def test_lm_training_entry_points_raise_without_gpu_by_default(no_card):
     # asked for the CPU, each runs
     assert make_host_mesh(device="cpu").shape == {"data": 1, "model": 1}
     assert list(PrefetchingLoader(lambda step: None, device="cpu")) == []
+
+
+def test_tp_placement_raises_without_gpu_by_default(no_card, tmp_path):
+    """``shard_tree``, ``shard`` and ``restore_checkpoint(shardings=)``
+    place on ``cuda`` unless asked for the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as CK
+
+    cfg = get_config("gemma-2b").smoke()
+    rules = SH.ShardingRules(SH.HostMesh(("data", "model")))
+    specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+    params = T.init_params(0, cfg, device="cpu")
+    path = CK.save_checkpoint(tmp_path, 1, params)
+    for call in (
+        lambda: SH.shard_tree(params, specs, rules),
+        lambda: SH.shard(params["final_norm"]["scale"], specs["final_norm"]["scale"], rules),
+        lambda: CK.restore_checkpoint(path, params, shardings=specs),
+    ):
+        with SH.use_rules(rules), pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    placed = SH.shard_tree(params, specs, rules, device="cpu")
+    with SH.use_rules(rules):
+        step, back = CK.restore_checkpoint(path, placed, shardings=specs, device="cpu")
+    assert step == 1 and torch.equal(back["embed"]["tok"], params["embed"]["tok"])
+
+
+class _TwoRanks:
+    """A duck-typed mesh whose "model" axis has 2 ranks and no process
+    group: specs cut, but nothing can combine the parts."""
+
+    axis_names, shape = ("data", "model"), {"data": 1, "model": 2}
+
+
+def test_tp_never_falls_back_to_whole_params_or_the_cpu(monkeypatch):
+    """A cut with no process group refuses to compute (it never runs the
+    program of whole parameters on its parts), a failing collective
+    propagates, and an int8 ``QTensor`` leaf refuses to be placed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("gemma-2b").smoke()
+    rules = SH.ShardingRules(_TwoRanks())
+    specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+    params = SH.shard_tree(T.init_params(0, cfg, device="cpu"), specs, rules, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with SH.use_rules(rules), pytest.raises(RuntimeError, match="no process group"):
+        T.forward(params, {"tokens": tokens}, cfg)
+
+    def failed(*a, **k):
+        raise RuntimeError("collective failed")
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", failed)
+    with pytest.raises(RuntimeError, match="collective failed"):
+        SH.reduce_from(torch.ones(2), object())
+    q = QTensor(torch.zeros((4, 2), dtype=torch.int8), torch.ones(2), axis=1)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        SH.shard(q, ("model", None), rules, device="cpu")
