@@ -174,7 +174,9 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    ``DRYRUN_PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` over the step;
    the roofline bound is printed beside phase 10's step time
    (``dryrun_train``, ``dryrun_decode``); then gemma-2b x decode_32k on the
-   256-rank production mesh runs in a child process (``dryrun_mesh``).
+   256-rank production mesh runs in a child process (``dryrun_mesh``): its
+   one kv head puts its caches' sequence on "model", and a rank's argument
+   bytes must equal those reckoned from the specs.
 
 12. tensor parallelism over ``"model"`` (``tp_phase``, run first, before
    this process makes a CUDA context: its ranks share the card): gemma-2b at its
@@ -192,7 +194,16 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    peak within ``DRYRUN_PEAK_TOL``; the fp32 state saved at (1, 2) and
    restored bitwise at (1, 4) and on one rank (the ``tp*`` lines; each
    rank's ms a step and the collectives' share printed, not claimed:
-   ranks sharing a card time no collective).
+   ranks sharing a card time no collective).  Then each world serves it
+   (``tp_serve_leg``, the ``tp_serve`` lines): 4 rows x 4,096 tokens
+   prefilled into caches of 32,768 positions whose sequence is cut over
+   "model", 16 greedy decode steps, against rank 0's 1-rank run: fp32 at
+   ``TP_FP32_LAYERS`` within ``TP_ULPS`` times a one-ulp nudge's change,
+   greedy and ``BatchedServer`` tokens equal; the int8 bake's parts
+   bitwise the whole's and its logits within its own nudge's limit; bf16
+   at full depth, each rank's cache bytes the whole's over the world
+   exactly and the first decode step's arguments and peak against the
+   dry run's.
 
 With ``--parent DIR``, K1's
 and K2's device time at every serving layer, and ``project_rows``'s and
@@ -3350,6 +3361,51 @@ def _child(code: str, what: str, marker: str | None = None):
     return json.loads(line[len(marker) + 1:])
 
 
+def _decode_arguments_from_specs(arch: str, shape_name: str, mesh=None, overrides=None) -> int:
+    """One rank's argument bytes of a decode cell on ``mesh`` (``{axis:
+    size}``; ``pod_16x16``'s ("data", "model") = (16, 16) by default) under
+    the rules with ``overrides``, reckoned from the specs: each param's part
+    of its spec, the rank's rows of tokens, and each cache's part of its
+    spec (its sequence over "model" where the kv heads do not divide the
+    model axis: ``"kv_seq_model"``; a mamba2 state's ``"ssm_heads"`` whole,
+    as that block runs), each storage in 512-byte blocks.
+    ``tests/test_torch_lm_tp_serve.py`` holds every decode_32k and long_500k
+    cell of the dry run's matrix, at both production meshes, to it."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.specs import SHAPES
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    class Mesh:
+        shape = dict(mesh or {"data": 16, "model": 16})
+        axis_names = tuple(shape)
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    rules = SH.ShardingRules(Mesh(), overrides)
+
+    def part(dims, logical, nbytes, whole=()) -> int:
+        spec = rules.spec(logical, dims, record=False)
+        n = math.prod(dims) // math.prod(rules.size(SH._entry_axes(e)) for a, e in
+                                         zip(logical, spec) if a not in whole)
+        return -(-n * nbytes // 512) * 512
+
+    total = sum(part(s.shape, s.logical, L.torch_dtype(s.dtype or cfg.param_dtype).itemsize)
+                for s in L.tree_leaves(T.build_specs(cfg)))
+    total += part((shape.global_batch, 1), ("decode_batch", None), 4)
+    with SH.use_rules(rules):
+        logical = T.cache_logical_axes(cfg, SH.kv_seq_axis(cfg.n_kv_heads))
+
+    def caches(sd, lg) -> int:  # ``cache_shapes``' (shape, dtype) leaves
+        if isinstance(sd, dict):
+            return sum(caches(sd[k], lg[k]) for k in sd)
+        return part(sd[0], lg, sd[1].itemsize, whole=("ssm_heads",))
+
+    return total + caches(T.cache_shapes(cfg, shape.global_batch, shape.seq_len), logical)
+
+
 def dryrun_phase(torch, np, dev, gpu_line) -> None:
     """The dry run (``repro_torch.launch.dryrun``) held against the card:
     :func:`dryrun_card_checks` in a child process, its numbers printed
@@ -3389,8 +3445,13 @@ def dryrun_phase(torch, np, dev, gpu_line) -> None:
     check(rec["status"] == "ok" and rec["device"].startswith(dev.type),
           f"dryrun: the {arch} x {shape} cell: {rec.get('status')} {rec.get('error')}")
     rec.pop("fallbacks", None)
-    print("dryrun_mesh " + json.dumps({**rec, "child_s": time.perf_counter() - t0,
-                                       "gpu": gpu_line}))
+    from_specs = _decode_arguments_from_specs(arch, shape)
+    print("dryrun_mesh " + json.dumps({**rec, "argument_bytes_from_specs": from_specs,
+                                       "child_s": time.perf_counter() - t0, "gpu": gpu_line}))
+    # its one kv head puts the caches' sequence on "model": each rank holds a 16th
+    check(rec["memory"]["argument_bytes"] == from_specs and not rec["uncut_cache_axes"],
+          f"dryrun: the {arch} x {shape} cell's arguments {rec['memory']['argument_bytes']} "
+          f"are not the specs' {from_specs} (uncut: {rec['uncut_cache_axes']})")
     print("dryrun_phase " + json.dumps({
         "phase_s": time.perf_counter() - t_phase, "parent_allocated_bytes": left,
         "parent_reserved_bytes": torch.cuda.memory_reserved(), "gpu": gpu_line}))
@@ -3423,6 +3484,11 @@ TP_FLOOR = {"loss": 1e-6, "params": 1e-6, "mu": 1e-5}
 TP_CONTEXT_BYTES = 4 << 30
 TP_DIR = ROOT / "build" / "tp"
 TP_STEP_ARGS = dict(b=8, s=128, n_micro=2)  # launch.train's traffic (phase 10's)
+#: the serving leg: rows x prompt tokens prefilled into caches of
+#: ``TP_SERVE_SEQ`` positions, then ``TP_SERVE_STEPS`` greedy decode steps;
+#: gemma-2b's one kv head does not divide a model axis of 2 or 4, so its
+#: caches' sequence is cut over "model" (``"kv_seq_model"``)
+TP_SERVE_ROWS, TP_SERVE_PROMPT, TP_SERVE_SEQ, TP_SERVE_STEPS = 4, 4096, 32_768, 16
 
 
 def _tp_cfg(layers, dtype: str):
@@ -3459,10 +3525,14 @@ def _digest(torch, t) -> int:
 def _nudged(torch, tree, seed: int):
     """Every nonzero weight moved by one ulp of its dtype, up or down at
     random (a zero's bits less one are a NaN's; the card's normals hold a
-    few exact zeros)."""
+    few exact zeros); an int8 ``QTensor``'s scale so, its payload kept."""
+    from repro_torch.core.quantization import QTensor
+
     gen = torch.Generator(device=next(iter(_tensors(tree))).device).manual_seed(seed)
 
     def leaf(t):
+        if isinstance(t, QTensor):
+            return QTensor(t.q, leaf(t.scale), t.axis, t.start)
         w = {2: torch.int16, 4: torch.int32}[t.element_size()]
         step = torch.randint(0, 2, t.shape, generator=gen, device=t.device, dtype=w) * 2 - 1
         return torch.where(t == 0, t, (t.view(w) + step).view(t.dtype))
@@ -3893,10 +3963,254 @@ def tp_rank(rank: int, world: int, port: int, tp_dir: str, queue, device_type: s
         del p2, o2, m, pairs, ref, via_gloo, others
         free()
         dist.barrier()  # every rank's memory is back before rank 0's next reference
+    out["serve"] = tp_serve_leg(torch, np, rules, rank, world, tp_dir, dev, plan["serve"], free)
     if rank == 0:
         (tp_dir / f"rank0_{world}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _serve_greedy(torch, T, params, cfg, prompt, force=None, measure: bool = False) -> dict:
+    """Prefill ``prompt`` into caches of ``TP_SERVE_SEQ`` positions, then
+    ``TP_SERVE_STEPS`` greedy decode steps (feeding ``force``'s tokens
+    instead, where given): every step's last logits (fp32, on the device),
+    the tokens fed, the caches' bytes, and the decode's ms a step (host
+    clock, synchronised).  ``measure``: also the first decode step's
+    arguments (``StepMeter``) and peak (its arguments plus what
+    ``max_memory_allocated`` rose above the bytes held before it)."""
+    from repro_torch.launch import dryrun as D
+
+    cuda = prompt.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    p = prompt.shape[1]
+    out = {}
+    with torch.inference_mode():
+        logits, caches = T.forward_with_cache(params, {"tokens": prompt}, cfg, TP_SERVE_SEQ)
+        out["cache_bytes"] = sum(t.numel() * t.element_size() for t in _tensors(caches))
+        steps, fed = [logits[:, -1].float()], []
+        cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(TP_SERVE_STEPS):
+            if force is not None:
+                cur = force[i].to(prompt.device)
+            fed.append(cur)
+            if measure and i == 0:
+                out["argument_bytes"] = D.StepMeter().track((params, cur, caches))
+                if cuda:
+                    sync()
+                    held = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+            logits, caches = T.decode_step(params, cur, caches, p + i, cfg, TP_SERVE_SEQ)
+            if measure and i == 0 and cuda:
+                sync()
+                out["peak_bytes"] = (out["argument_bytes"] + torch.cuda.max_memory_allocated()
+                                     - held)
+            steps.append(logits[:, -1].float())
+            cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        sync()
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / TP_SERVE_STEPS
+    out["logits"] = torch.stack(steps)
+    out["tokens"] = torch.stack(fed).cpu()
+    return out
+
+
+def _serve_prompt(torch, np, cfg, dev):
+    """The serving leg's seeded prompt: ``TP_SERVE_ROWS`` x
+    ``TP_SERVE_PROMPT`` tokens."""
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (TP_SERVE_ROWS, TP_SERVE_PROMPT))
+                            .astype(np.int32)).to(dev)
+
+
+def _serve_requests(torch, np, server) -> list:
+    """The JAX serve driver's traffic through ``server``: its tokens."""
+    from repro_torch.launch.serve import Request
+
+    with torch.inference_mode():
+        done = server.serve(lm_requests(np, Request, server.cfg.vocab))
+    return [[int(v) for v in r.out] for r in done]
+
+
+def _serve_refs(torch, np, dev, path: Path) -> None:
+    """Rank 0's 1-rank serving runs (no rules), written to ``path`` for
+    both worlds: fp32 at ``TP_FP32_LAYERS`` (and its run on one-ulp-nudged
+    weights, fed the base run's tokens), ``BatchedServer`` on the JAX serve
+    driver's traffic with ``TP_SERVE_SEQ`` positions, the int8
+    (``default_lm_policy``) bake of the fp32 weights (and its nudged
+    scales and float leaves), and bf16 at full depth."""
+    import gc
+
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantized import default_lm_policy, quantize_lm_params
+
+    refs = {}
+
+    def keep(name, run, nudged=None):
+        refs[name] = {"logits": run["logits"].cpu(), "tokens": run["tokens"],
+                      "cache_bytes": run["cache_bytes"], "decode_ms": run["decode_ms"]}
+        if nudged is not None:
+            refs[name]["nudge"] = float((nudged["logits"] - run["logits"]).abs().max())
+
+    cfg = _tp_cfg(TP_FP32_LAYERS, "float32")
+    prompt = _serve_prompt(torch, np, cfg, dev)
+    whole = T.init_params(0, cfg, device=dev)
+    for name, params in (("fp32", whole),
+                         ("int8", quantize_lm_params(whole, default_lm_policy(cfg)))):
+        base = _serve_greedy(torch, T, params, cfg, prompt)
+        keep(name, base, _serve_greedy(torch, T, _nudged(torch, params, SEED), cfg, prompt,
+                                       force=base["tokens"]))
+        del base
+    server = BatchedServer(cfg, whole, batch_slots=LM_SLOTS, max_seq=TP_SERVE_SEQ, device=dev)
+    refs["server"] = _serve_requests(torch, np, server)
+    del whole, params, server
+    gc.collect()
+    cfg = _tp_cfg(None, "bfloat16")
+    keep("bf16", _serve_greedy(torch, T, T.init_params(0, cfg, device=dev), cfg, prompt))
+    torch.save(refs, path)
+
+
+def tp_serve_leg(torch, np, rules, rank: int, world: int, tp_dir: Path, dev, plan, free) -> dict:
+    """Phase 12's serving leg in a rank world, after its training runs:
+    gemma-2b served with every leaf as ``tree_shardings`` cuts it and its
+    decode caches' sequence cut over "model", against rank 0's 1-rank runs
+    (:func:`_serve_refs`, made by the first world): (a) fp32 at
+    ``TP_FP32_LAYERS``, the logits within ``TP_ULPS`` times the one-ulp
+    nudge's change and the greedy tokens equal, and ``BatchedServer`` under
+    the rules on the JAX serve driver's traffic, its tokens equal; (b) bf16
+    at full depth, each rank's cache bytes the whole's over the world
+    exactly and the first decode step's arguments and peak against the dry
+    run's (``plan``), the logits' error, greedy agreement and ms a step
+    printed; (c) the int8 bake, every rank's dequantised weights bitwise
+    the whole's part, the logits within ``TP_ULPS`` times the int8 run's
+    own nudge.  Returns each rank's results (on rank 0, all ranks')."""
+    import torch.distributed as dist
+
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dequantize_as, tree_leaves
+    from repro_torch.models.quantized import (
+        abstract_quantized, default_lm_policy, quantize_lm_params)
+
+    t_leg = time.perf_counter()
+    path = tp_dir / "serve_ref.pt"
+    if rank == 0 and not path.exists():
+        t0 = time.perf_counter()
+        _serve_refs(torch, np, dev, path)
+        ref_s = time.perf_counter() - t0
+        free()
+    else:
+        ref_s = 0.0
+    dist.barrier()
+    refs = torch.load(path) if rank == 0 else None
+    res = {"rank": rank, "ref_s": ref_s}
+
+    def against(name, run):
+        """The run's logits against rank 0's reference: the error, the
+        nudge's change, the share of the limit, greedy tokens equal, the
+        first decode step fed another token than the reference's, and the
+        error of the logits made from the same inputs (those before it)."""
+        if refs is None:
+            return {}
+        want = refs[name]
+        diff = (run["logits"] - want["logits"].to(run["logits"].device)).abs()
+        err = float(diff.max())
+        same = (run["tokens"] == want["tokens"]).reshape(TP_SERVE_STEPS, -1).all(dim=1)
+        first = None if bool(same.all()) else int((~same).nonzero()[0])
+        got = {"err": err, "tokens_equal": first is None, "first_step_differing": first,
+               "err_same_inputs": err if first is None else float(diff[:first + 1].max()),
+               "ref_cache_bytes": want["cache_bytes"], "ref_decode_ms": want["decode_ms"]}
+        if "nudge" in want:
+            got.update(nudge=want["nudge"], share=err / (TP_ULPS * want["nudge"]))
+        return got
+
+    def whole_cache(cfg) -> int:
+        return (cfg.n_layers * 2 * TP_SERVE_ROWS * TP_SERVE_SEQ * cfg.n_kv_heads * cfg.head_dim
+                * (2 if cfg.act_dtype == "bfloat16" else 4))
+
+    # (a) fp32 at TP_FP32_LAYERS, and BatchedServer under the rules
+    cfg = _tp_cfg(TP_FP32_LAYERS, "float32")
+    prompt = _serve_prompt(torch, np, cfg, dev)
+    specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+    whole = T.init_params(0, cfg, device=dev)
+    params = SH.shard_tree(whole, specs, rules, device=dev)
+    with SH.use_rules(rules):
+        seq_cut = L.cache_seq_cut(cfg, TP_SERVE_SEQ)
+        run = _serve_greedy(torch, T, params, cfg, prompt)
+        server = BatchedServer(cfg, params, batch_slots=LM_SLOTS, max_seq=TP_SERVE_SEQ,
+                               device=dev)
+        t0 = time.perf_counter()
+        server_tokens = _serve_requests(torch, np, server)
+        server_s = time.perf_counter() - t0
+    res["fp32"] = {"layers": cfg.n_layers, "seq_cut": None if seq_cut is None else
+                   [list(seq_cut.axes), seq_cut.size], "cache_bytes": run["cache_bytes"],
+                   "cache_exact": run["cache_bytes"] * world == whole_cache(cfg),
+                   "decode_ms": run["decode_ms"], **against("fp32", run),
+                   "server_s": server_s}
+    if refs is not None:
+        res["fp32"]["server_tokens_equal"] = server_tokens == refs["server"]
+    del run, params, server
+
+    # (c) the int8 bake: parts bitwise, then served
+    qwhole = quantize_lm_params(whole, default_lm_policy(cfg))
+    del whole
+    qspecs = SH.tree_shardings(rules, *abstract_quantized(
+        T.abstract_params(cfg), T.logical_axes(cfg), default_lm_policy(cfg)))
+    qparams = SH.shard_tree(qwhole, qspecs, rules, device=dev)
+    pairs = []
+    SH.map_specs(lambda t, spec: pairs.append((t, spec)), qwhole, qspecs)
+    bitwise, n_q, n_cut = True, 0, 0
+    for (w, spec), part in zip(pairs, tree_leaves(qparams)):
+        if isinstance(w, QTensor):
+            n_q += 1
+            n_cut += bool(SH.spec_cuts(spec.q, rules))
+            want = SH.shard(dequantize_as(w, torch.float32), spec.q, rules, device=dev)
+            bitwise &= bool(torch.equal(_bits(torch, dequantize_as(part, torch.float32)),
+                                        _bits(torch, want)))
+            del want
+    del qwhole, pairs
+    with SH.use_rules(rules):
+        run = _serve_greedy(torch, T, qparams, cfg, prompt)
+    res["int8"] = {"quantized_leaves": n_q, "cut_leaves": n_cut, "parts_bitwise": bitwise,
+                   "cache_bytes": run["cache_bytes"], "decode_ms": run["decode_ms"],
+                   **against("int8", run)}
+    del run, qparams
+    free()
+
+    # (b) bf16 at full depth: bytes and peak against the dry run
+    cfg = _tp_cfg(None, "bfloat16")
+    specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+    whole = T.init_params(0, cfg, device=dev)
+    params = SH.shard_tree(whole, specs, rules, device=dev)
+    del whole
+    free()
+    with SH.use_rules(rules):
+        run = _serve_greedy(torch, T, params, cfg, prompt, measure=True)
+    res["bf16"] = {"layers": cfg.n_layers, "cache_bytes": run["cache_bytes"],
+                   "whole_cache_bytes": whole_cache(cfg),
+                   "cache_exact": run["cache_bytes"] * world == whole_cache(cfg),
+                   "argument_bytes": run["argument_bytes"], "peak_bytes": run.get("peak_bytes"),
+                   "decode_ms": run["decode_ms"], **against("bf16", run)}
+    if plan is not None:
+        res["bf16"]["pred"] = plan
+        res["bf16"]["argument_equal"] = run["argument_bytes"] == plan["argument_bytes"]
+        if run.get("peak_bytes"):
+            res["bf16"]["peak_rel_err"] = (plan["peak_bytes"] - run["peak_bytes"]) / run[
+                "peak_bytes"]
+    del run, params
+    free()
+    res["leg_s"] = time.perf_counter() - t_leg
+    every = [None] * world
+    dist.all_gather_object(every, res)
+    return every
 
 
 def tp_predict(path: str, total_memory, device_type: str = "cuda") -> None:
@@ -3946,11 +4260,20 @@ def tp_predict(path: str, total_memory, device_type: str = "cuda") -> None:
                 batch = {k: torch.empty((shape.global_batch, shape.seq_len), dtype=torch.int32,
                                         device=device_type) for k in ("tokens", "labels")}
                 batch_bytes = D.StepMeter().track(batch)
+            # the serving leg's first bf16 decode step at full depth
+            serve = D.trace_cell(_tp_cfg(None, "bfloat16"),
+                                 ShapeSpec("tp_serve", TP_SERVE_SEQ, TP_SERVE_ROWS, "decode"),
+                                 rules, 1, device=device_type)
             out[str(world)] = {"layers": layers, "cut": layers < full, "fits": fits(rec),
                                "argument_bytes": rec["memory"]["argument_bytes"],
                                "batch_bytes": batch_bytes, "peak_bytes": rec["memory"]["peak_bytes"],
                                "flops": rec["flops_per_device"], "trace_s": rec["trace_s"],
                                "collectives": rec["collectives"]["counts"],
+                               "serve": {"argument_bytes": serve["memory"]["argument_bytes"],
+                                         "peak_bytes": serve["memory"]["peak_bytes"],
+                                         "flops": serve["flops_per_device"],
+                                         "collectives": serve["collectives"]["counts"],
+                                         "trace_s": serve["trace_s"]},
                                "child_s": time.perf_counter() - t0}
     except Exception as exc:  # noqa: BLE001 -- handed to the ranks, which fail the phase
         out = {"error": f"{type(exc).__name__}: {exc}", "traceback": traceback.format_exc()}
@@ -3994,6 +4317,38 @@ def _tp_report(w: dict, dev, gpu_line: str) -> list[str]:
                 check(abs(r["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
                       f"tp: world {world}: predicted peak {r['pred']['peak_bytes']} is "
                       f"{r['peak_rel_err']:+.3f} of the card's {r['peak_bytes']}")
+    ranks = w["serve"]
+    zero = ranks[0]
+    print("tp_serve " + json.dumps({
+        "world": world, "mesh": w["mesh"], "rows": TP_SERVE_ROWS, "prompt": TP_SERVE_PROMPT,
+        "positions": TP_SERVE_SEQ, "steps": TP_SERVE_STEPS, **zero,
+        "ranks_cache_bytes": {k: [r[k]["cache_bytes"] for r in ranks]
+                              for k in ("fp32", "int8", "bf16")},
+        "ranks_parts_bitwise": [r["int8"]["parts_bitwise"] for r in ranks],
+        "ranks_peak_bytes": [r["bf16"].get("peak_bytes") for r in ranks], "gpu": gpu_line}),
+        flush=True)
+    a, q, b = zero["fp32"], zero["int8"], zero["bf16"]
+    check(a["seq_cut"] == [["model"], world],
+          f"tp_serve: world {world}: the caches' sequence is not cut over model: {a['seq_cut']}")
+    check(all(r[k]["cache_exact"] for r in ranks for k in ("fp32", "bf16"))
+          and b["ref_cache_bytes"] == b["whole_cache_bytes"],
+          f"tp_serve: world {world}: a rank's cache bytes are not the whole's "
+          f"{b['whole_cache_bytes']} over {world}")
+    check(a["share"] <= 1 and a["tokens_equal"] and a["server_tokens_equal"],
+          f"tp_serve: world {world}: fp32 serving is not the 1-rank run's: {a}")
+    check(all(r["int8"]["parts_bitwise"] for r in ranks) and q["cut_leaves"] > 0
+          and q["share"] <= 1 and q["tokens_equal"],
+          f"tp_serve: world {world}: int8 serving: {q}")
+    check(all(r["bf16"]["argument_equal"] for r in ranks),
+          f"tp_serve: world {world}: bf16 decode arguments {b['argument_bytes']} against the "
+          f"dry run's {b['pred']}")
+    if dev.type == "cuda":
+        for r in ranks:
+            err = r["bf16"]["peak_rel_err"]
+            check(abs(err) <= DRYRUN_PEAK_TOL,
+                  f"tp_serve: world {world} rank {r['rank']}: predicted decode peak "
+                  f"{r['bf16']['pred']['peak_bytes']} is {err:+.3f} of the card's "
+                  f"{r['bf16']['peak_bytes']}")
     return failed
 
 

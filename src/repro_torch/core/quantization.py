@@ -53,21 +53,44 @@ class Precision(str, enum.Enum):
 
 @dataclasses.dataclass
 class QTensor:
-    """An int8 tensor + dequantisation scale (per-channel on ``axis``)."""
+    """An int8 tensor + dequantisation scale (per-channel on ``axis``).
+
+    A weight placed on a mesh (``distributed/sharding.shard``) holds this
+    rank's part of the payload and the whole scale, as the reference's
+    specs place them; ``start`` is then where the part begins in the whole
+    payload, one entry a dimension (``None``: the payload is whole), and
+    :meth:`local_scale` takes the part's channels."""
 
     q: torch.Tensor  # int8 payload
-    scale: torch.Tensor  # fp32, broadcastable against q
+    scale: torch.Tensor  # fp32, broadcastable against the whole payload
     axis: Optional[int] = None  # channel axis the scale follows (None = per-tensor)
+    start: Optional[tuple[int, ...]] = None
 
     @property
     def shape(self):
         return self.q.shape
 
+    def local_scale(self) -> torch.Tensor:
+        """The scale's channels of this payload: a dimension on which the
+        scale has more channels than the part has is narrowed to the part's.
+        A part that has lost its ``start`` raises (broadcasting the whole
+        scale over a part of one channel would dequantise it wrongly)."""
+        s = self.scale
+        if s.ndim != self.q.ndim:  # a per-tensor scale
+            return s
+        for dim, n in enumerate(self.q.shape):
+            if s.shape[dim] not in (1, n):
+                if self.start is None:
+                    raise ValueError(f"a QTensor part of shape {tuple(self.q.shape)} with a "
+                                     f"scale of {tuple(s.shape)} does not say where it starts")
+                s = s.narrow(dim, self.start[dim], n)
+        return s
+
     def dequantize(self) -> torch.Tensor:
-        return self.q.to(torch.float32) * self.scale
+        return self.q.to(torch.float32) * self.local_scale()
 
     def to(self, device) -> "QTensor":
-        return QTensor(self.q.to(device), self.scale.to(device), self.axis)
+        return QTensor(self.q.to(device), self.scale.to(device), self.axis, self.start)
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:

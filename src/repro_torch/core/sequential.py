@@ -15,7 +15,8 @@ the counterpart is a Python loop over the unbound layers:
   ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``.
 
 Trees are nested dicts, lists and tuples whose leaves are tensors or
-``QTensor`` (payload and scale stacked and split alike).
+``QTensor`` (payload and scale stacked and split alike; a rank's part
+keeps where it starts, the layer axis whole).
 
 ``policy`` names what the rematerialised body keeps, as the reference's
 ``jax.checkpoint_policies`` do: ``"nothing_saveable"`` (the default of
@@ -48,7 +49,12 @@ def _leaves_map(fn: Callable, *trees):
     if isinstance(first, (list, tuple)):
         return type(first)(_leaves_map(fn, *parts) for parts in zip(*trees))
     if isinstance(first, QTensor):
-        return QTensor(fn(*(t.q for t in trees)), fn(*(t.scale for t in trees)), first.axis)
+        # ``fn`` adds the leading layer axis, which a placed part holds whole
+        if any(t.start != first.start for t in trees):
+            raise ValueError("stack_layers: the layers' parts start at different places")
+        start = None if first.start is None else (0, *first.start)
+        return QTensor(fn(*(t.q for t in trees)), fn(*(t.scale for t in trees)), first.axis,
+                       start)
     if first is None:
         return None
     return fn(*trees)
@@ -69,7 +75,11 @@ def _split(tree) -> list:
         parts = [_split(v) for v in tree]
         return [type(tree)(p[i] for p in parts) for i in range(len(parts[0]))]
     if isinstance(tree, QTensor):
-        return [QTensor(q, s, tree.axis)
+        if tree.scale.shape[0] != tree.q.shape[0]:
+            raise ValueError(f"unstack_layers: a QTensor of {tuple(tree.q.shape)} whose scale "
+                             f"of {tuple(tree.scale.shape)} does not follow its layer axis")
+        start = None if tree.start is None else tree.start[1:]
+        return [QTensor(q, s, tree.axis, start)
                 for q, s in zip(torch.unbind(tree.q), torch.unbind(tree.scale))]
     return list(torch.unbind(tree))
 

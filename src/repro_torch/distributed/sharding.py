@@ -42,6 +42,15 @@ nothing, so a ``"model"`` axis of 1 (or a :class:`HostMesh`) runs the
 program of whole parameters.  ``constrain`` is an identity.  On a
 :class:`HostMesh` the groups are ``None`` and every collective is an
 identity.
+
+A decode cache's sequence is cut as its logical axes say
+(``models/layers.cache_seq_cut``), and its rows are the
+``"decode_batch"`` axes' (:func:`to_cache_rows`).  An int8 ``QTensor``
+leaf is placed as the reference places it (``tree_shardings`` over
+``models/quantized.abstract_quantized``'s trees gives its payload the
+weight's spec and its scale an all-``None`` one): the payload cut, the
+scale whole, and the part's ``start`` recorded so that a block
+dequantises with the part's channels (``QTensor.local_scale``).
 """
 from __future__ import annotations
 
@@ -319,9 +328,16 @@ def is_logical_leaf(t) -> bool:
 def tree_shardings(rules: ShardingRules, abstract_tree, logical_tree, *, record: bool = True):
     """The tree of specs for params: ``logical_tree`` mirrors the abstract
     param tree (tensors on the ``meta`` device, or anything with a
-    ``shape``), with tuples of logical axis names at the leaves."""
+    ``shape``), with tuples of logical axis names at the leaves.  A
+    ``QTensor`` leaf (``models/quantized.abstract_quantized``'s trees) gets a
+    ``QTensor`` of specs: its payload's and its scale's."""
     if is_logical_leaf(logical_tree):
         return rules.spec(logical_tree, dims=tuple(abstract_tree.shape), record=record)
+    if isinstance(logical_tree, QTensor):
+        return QTensor(
+            rules.spec(logical_tree.q, dims=tuple(abstract_tree.q.shape), record=record),
+            rules.spec(logical_tree.scale, dims=tuple(abstract_tree.scale.shape), record=record),
+            logical_tree.axis)
     return {k: tree_shardings(rules, abstract_tree[k], logical_tree[k], record=record)
             for k in sorted(logical_tree)}  # the reference's leaf order (fallbacks log)
 
@@ -390,12 +406,29 @@ def dim_cut(logical: Sequence[Optional[str]], dims: Sequence[int], dim: int) -> 
     return spec_cuts(rules.spec(logical, dims, record=False), rules).get(dim)
 
 
-def batch_cut() -> Optional[Cut]:
+def batch_cut(logical: str = "batch") -> Optional[Cut]:
     """How the batch's rows are split over the ranks under the active
-    rules: over the mesh axes of ``"batch"``, or ``None`` where one rank
-    holds them all."""
+    rules: over the mesh axes of ``logical`` (``"batch"``, or a decode
+    cache's ``"decode_batch"``), or ``None`` where one rank holds them
+    all."""
     rules = active_rules()
-    return None if rules is None else _cut(rules.mesh_axes_for("batch"), rules)
+    return None if rules is None else _cut(rules.mesh_axes_for(logical), rules)
+
+
+def to_cache_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``t``'s rows (dimension ``dim``) as a decode cache holds them: a
+    prefill's activations hold the rows of ``"batch"``, a cache those of
+    ``"decode_batch"``; where the two cuts differ (the long-context rules
+    keep a decode's rows whole over ``"data"``), the rows are gathered over
+    the one and this rank's part of the other is kept."""
+    src, dst = batch_cut(), batch_cut("decode_batch")
+    if (src and src.axes) == (dst and dst.axes):
+        return t
+    if src is not None:
+        t = _all_gather_dim(t, group_of(src), dim)
+    if dst is not None:
+        t = t.narrow(dim, dst.index * (t.shape[dim] // dst.size), t.shape[dim] // dst.size)
+    return t
 
 
 def map_specs(fn, tree, specs):
@@ -415,18 +448,26 @@ def map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
-def _no_qtensor(leaf) -> None:
-    if isinstance(leaf, QTensor):
-        raise NotImplementedError(
-            "int8 QTensor leaves cannot be placed on a mesh yet (ROADMAP Queue 1: QTensor "
-            "shards)")
+def _q_specs(spec) -> tuple:
+    """A ``QTensor`` leaf's (payload, scale) specs: a ``QTensor`` of specs
+    (:func:`tree_shardings` over ``abstract_quantized``'s trees) as it is;
+    a plain spec is the payload's, the scale then whole."""
+    return (spec.q, spec.scale) if isinstance(spec, QTensor) else (spec, None)
 
 
 def shard(t: torch.Tensor, spec, rules: ShardingRules, *, device="cuda") -> torch.Tensor:
     """This rank's part of the whole tensor ``t`` under ``spec``, on
     ``device`` (``"cuda"`` by default; without a GPU that raises unless
-    ``device="cpu"``)."""
-    _no_qtensor(t)
+    ``device="cpu"``).  A ``QTensor``: its payload's part and its scale by
+    the scale's own spec (whole, as the reference places it), with the
+    part's ``start`` in the whole payload."""
+    if isinstance(t, QTensor):
+        qspec, sspec = _q_specs(spec)
+        q = shard(t.q, qspec, rules, device=device)
+        cuts = spec_cuts(qspec, rules)
+        start = tuple(cuts[d].index * n if d in cuts else 0
+                      for d, n in enumerate(q.shape)) if cuts else None
+        return QTensor(q, shard(t.scale, sspec, rules, device=device), t.axis, start)
     dev = resolve_device(device)
     cuts = spec_cuts(spec, rules)
     if not cuts:
@@ -449,8 +490,10 @@ def shard_tree(tree, specs, rules: ShardingRules, *, device="cuda"):
 def unshard(t: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
     """The whole leaf of which ``t`` is this rank's part, gathered over the
     groups of its cut dimensions (a collective: every rank of those groups
-    calls it)."""
-    _no_qtensor(t)
+    calls it).  A ``QTensor``: its payload and scale made whole."""
+    if isinstance(t, QTensor):
+        qspec, sspec = _q_specs(spec)
+        return QTensor(unshard(t.q, qspec, rules), unshard(t.scale, sspec, rules), t.axis)
     for dim, c in spec_cuts(spec, rules).items():
         t = _all_gather_dim(t, group_of(c), dim)
     return t
@@ -463,9 +506,10 @@ def unshard_tree(tree, specs, rules: ShardingRules):
 
 
 def global_shape(shape: Sequence[int], spec, rules: ShardingRules) -> tuple[int, ...]:
-    """The whole leaf's shape from the shape of one rank's part."""
+    """The whole leaf's shape from the shape of one rank's part (a
+    ``QTensor``'s: its payload's)."""
     out = list(shape)
-    for dim, c in spec_cuts(spec, rules).items():
+    for dim, c in spec_cuts(_q_specs(spec)[0], rules).items():
         out[dim] *= c.size
     return tuple(out)
 
@@ -570,7 +614,8 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
-    return x if group is None else _CopyTo.apply(x, group)
+    """A whole ``QTensor`` takes no gradient, so it enters as it is."""
+    return x if group is None or isinstance(x, QTensor) else _CopyTo.apply(x, group)
 
 
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
@@ -587,9 +632,15 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_dim(x, cut: Optional[Cut], dim: int):
     """``x`` joined with the other parts of ``cut`` along ``dim`` (an
-    identity for ``cut`` ``None``); the backward keeps this rank's part."""
+    identity for ``cut`` ``None``); the backward keeps this rank's part.
+    A ``QTensor``: its payload joined (the scale is whole already)."""
     if cut is None:
         return x
+    if isinstance(x, QTensor):
+        dim %= x.q.ndim
+        start = None if x.start is None else tuple(0 if i == dim else s
+                                                   for i, s in enumerate(x.start))
+        return QTensor(_all_gather_dim(x.q, group_of(cut), dim), x.scale, x.axis, start)
     return _GatherDim.apply(x, cut, dim % x.ndim)
 
 
@@ -611,6 +662,6 @@ __all__ = [
     "HostMesh", "ShardingRules", "active_rules", "use_rules", "kv_seq_axis", "constrain",
     "is_logical_leaf", "tree_shardings", "mesh_shape", "copy_to",
     "reduce_from", "gather_from", "all_to_all", "Cut", "spec_cuts", "spec_cut", "dim_cut", "batch_cut",
-    "map_specs", "shard", "shard_tree", "unshard", "unshard_tree", "global_shape",
-    "gather_dim", "group_of",
+    "to_cache_rows", "map_specs", "shard", "shard_tree", "unshard", "unshard_tree",
+    "global_shape", "gather_dim", "group_of",
 ]

@@ -13,14 +13,16 @@ and devices, no data, no card memory), as rank 0 of the production mesh of
 Every rank holds what the port's program gives it (``launch/train.py``):
 its part of every parameter and Adam moment that ``tree_shardings`` cuts
 (the ``"model"`` axis), its data-parallel share of the batch (rows over
-the mesh axes of ``"batch"``/``"decode_batch"``), and decode caches whose
-kv heads (and RWKV state heads) are cut where the blocks cut them.  Not
-ported, and so whole on every rank of ``"model"``: the reference's
-sequence-sharded decode caches (``"kv_seq_model"``, given where the kv
-heads do not divide the model axis, and the long-context rules'
-``"kv_seq"``) and a mamba2 block's state (that block runs whole); a record
-names them under ``"uncut_cache_axes"``.  Int8 ``QTensor`` weights under a
-cut model axis are not ported either (``--quantize`` raises).
+the mesh axes of ``"batch"``/``"decode_batch"``), and decode caches cut
+where the blocks cut them: the kv heads (and RWKV state heads), and the
+sequence (``"kv_seq_model"`` over ``"model"`` where the kv heads do not
+divide the model axis; the long-context rules' ``"kv_seq"`` over
+``"data"`` and ``"kv_seq_model"`` over both), which the decode's
+ring-decode attention combines.  Not ported, and so whole on every rank
+of ``"model"``: a mamba2 block's state (that block runs whole); a record
+names it under ``"uncut_cache_axes"``.  Int8 ``QTensor`` weights
+(``quantize``) are baked whole and placed as the port places them: the
+payload cut by the weight's spec, the scale whole.
 
 A cell records:
 
@@ -107,7 +109,13 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import get_config, lm_arch_names
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import QTensor
-from repro_torch.distributed.sharding import LONG_CONTEXT_OVERRIDES, ShardingRules, use_rules
+from repro_torch.distributed.sharding import (
+    LONG_CONTEXT_OVERRIDES,
+    ShardingRules,
+    shard_tree,
+    tree_shardings,
+    use_rules,
+)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch import comm_analysis
 from repro_torch.launch.hw import HBM_BYTES
@@ -136,7 +144,7 @@ SCAN_SEQ = 64
 #: logical axes over which a rank holds a share of the data
 _DATA_AXES = ("batch", "decode_batch")
 #: a decode cache's logical axes the blocks cut (with the data's)
-_CACHE_AXES = _DATA_AXES + ("kv_heads", "heads")
+_CACHE_AXES = _DATA_AXES + ("kv_heads", "heads", "kv_seq", "kv_seq_model")
 #: ops that alias their input or allocate without writing: no bytes moved
 _NO_BYTES = ("_unsafe_view", "_reshape_alias", "empty", "empty_like", "empty_strided",
              "new_empty", "new_empty_strided")
@@ -236,18 +244,14 @@ def _empty(shape, dtype, dev) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=dev)
 
 
-def _materialise(tree, logical, rules: ShardingRules, dev):
+def _materialise(tree, logical, rules: ShardingRules, dev, names=None):
     """Empty tensors like ``tree``'s, each this rank's part of its spec
-    (:func:`_local`), keys in sorted order as ``init_from_specs`` builds
-    real params (the functional Adam's leaf order, and so the step's peak,
-    follows it)."""
+    (:func:`_local`; ``names=()``: whole), keys in sorted order as
+    ``init_from_specs`` builds real params (the functional Adam's leaf
+    order, and so the step's peak, follows it)."""
     if isinstance(tree, dict):
-        return {k: _materialise(tree[k], logical[k], rules, dev) for k in sorted(tree)}
-    return _empty(_local(rules, logical, tree), tree.dtype, dev)
-
-
-def _model_cut(rules: ShardingRules) -> bool:
-    return rules.shape.get("model", 1) > 1
+        return {k: _materialise(tree[k], logical[k], rules, dev, names) for k in sorted(tree)}
+    return _empty(_local(rules, logical, tree, names), tree.dtype, dev)
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules, n_micro: int, *,
@@ -257,19 +261,30 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules, n_micro:
     ``FakeTensorMode``, so nothing is allocated).  A decode cell's ``pos``
     is the Python int ``seq_len - 1`` (the step reads it with ``int``)."""
     dev = torch.device(device)
-    if quantize and _model_cut(rules):
-        raise NotImplementedError("quantize: int8 QTensor shards over a cut \"model\" axis are "
-                                  "not ported (ROADMAP Queue 1: QTensor shards)")
-    params = _materialise(T.abstract_params(cfg), T.logical_axes(cfg), rules, dev)
+    aparams, logical = T.abstract_params(cfg), T.logical_axes(cfg)
     if quantize:
-        # the served int8 weights, baked from the (fake) params: the
-        # reference's ``abstract_quantized`` gives one scale per channel of
-        # the last axis, which its own scan over stacked groups rejects
+        # the served int8 weights, baked from the whole (fake) params and
+        # placed as ``sharding.shard`` places them: the payload cut by the
+        # weight's spec, the scale by its own (whole), the specs
+        # ``tree_shardings`` gives over the reference's ``abstract_quantized``
+        # trees (whose one scale per channel of the last axis its own scan
+        # over stacked groups rejects, so the scales are the bake's)
         if shape.kind == "train":
             raise ValueError("quantize: int8 weights take no gradient step")
-        from repro_torch.models.quantized import default_lm_policy, quantize_lm_params
+        from repro_torch.models.quantized import (
+            abstract_quantized,
+            default_lm_policy,
+            quantize_lm_params,
+        )
 
-        params = quantize_lm_params(params, default_lm_policy(cfg))
+        policy = default_lm_policy(cfg)
+        whole = quantize_lm_params(_materialise(aparams, logical, rules, dev, names=()), policy)
+        specs = tree_shardings(rules, *abstract_quantized(aparams, logical, policy),
+                               record=False)
+        params = shard_tree(whole, specs, rules, device=dev)
+        del whole
+    else:
+        params = _materialise(aparams, logical, rules, dev)
     bspecs, blogical = batch_specs(cfg, shape)
     batch = {k: _empty(_local(rules, blogical[k], v), v.dtype, dev)
              for k, v in bspecs.items() if k != "pos"}
@@ -308,13 +323,13 @@ def prepare_groups(rules: ShardingRules) -> None:
 
 def uncut_cache_axes(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules) -> list[str]:
     """The logical axes of a decode cell's caches that the reference's rules
-    cut and the port holds whole (not ported: ROADMAP Queue 1)."""
+    cut and the port holds whole: a mamba2 state's ``"ssm_heads"`` (that
+    block runs whole; ROADMAP Queue 1)."""
     if shape.kind != "decode":
         return []
     _, clogical = cache_specs(cfg, shape, model_axis_size=rules.shape.get("model", 1))
     axes = {a for lg in _leaves_logical(clogical) for a in lg}
-    return [a for a in ("kv_seq_model", "kv_seq", "ssm_heads")
-            if a in axes and rules.size(rules.mesh_axes_for(a)) > 1]
+    return [a for a in ("ssm_heads",) if a in axes and rules.size(rules.mesh_axes_for(a)) > 1]
 
 
 def _leaves_logical(tree):

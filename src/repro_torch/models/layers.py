@@ -33,11 +33,25 @@ through ``copy_to`` and ``wo``'s partial product leaves through
 ``reduce_from``.  Where the heads are cut and the kv heads are not
 (GQA/MQA with few kv heads), ``wk``/``wv`` are whole: they enter through
 ``copy_to`` (each rank reads only its query heads' kv heads), k and v are
-computed whole (so a decode cache is whole, and the same, on every rank),
-and each local query head reads the kv head of its *global* index.  Where
-the heads are not cut the block runs whole, with no collective.  The MLP:
-``wi*`` column-parallel over ``"mlp"``, ``wo`` row-parallel, ``copy_to``
-in and ``reduce_from`` out.
+computed whole, and each local query head reads the kv head of its
+*global* index.  Where the heads are not cut the block runs whole, with no
+collective.  The MLP: ``wi*`` column-parallel over ``"mlp"``, ``wo``
+row-parallel, ``copy_to`` in and ``reduce_from`` out.
+
+Decode caches follow the reference's rules: a cache's logical axes are
+``("layers", "decode_batch", kv_seq_axis(n_kv), "kv_heads", "head_dim")``
+and :func:`cache_seq_cut` reads its sequence's cut from them (over
+``"model"`` where the kv heads do not divide the model axis; the
+long-context rules cut over ``"data"`` too).  The prefill builds the whole
+padded or rolled cache, with the rows a decode holds
+(``sharding.to_cache_rows``), and keeps this rank's slots.  The decode
+(:func:`attn_decode`) is then ring-decode attention: the rank owning the
+token's global slot writes its k and v, every rank scores its own slots
+(validity from the global slot index) with every query head it needs (all
+of them, gathered over the heads' group, where the heads are cut over
+whole kv heads), and the ranks of the sequence's group combine their fp32
+partial max, sum and value accumulator; this rank's heads of the result
+go into ``wo``.  A cache whose sequence is whole decodes as before.
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ import math
 from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -131,10 +146,12 @@ def stack_specs(specs: Any, n: int, axis_name: str = "layers"):
 
 
 def dequantize_as(w, dtype: torch.dtype) -> torch.Tensor:
-    """``w`` as a float tensor: a ``QTensor``'s payload times its scale, both
-    cast to ``dtype`` first (the reference's ``q.astype * scale.astype``)."""
+    """``w`` as a float tensor: a ``QTensor``'s payload times its scale's
+    channels of that payload (``QTensor.local_scale``: a rank's part of a
+    cut weight dequantises with its part of the whole scale), both cast to
+    ``dtype`` first (the reference's ``q.astype * scale.astype``)."""
     if isinstance(w, QTensor):
-        return w.q.to(dtype) * w.scale.to(dtype)
+        return w.q.to(dtype) * w.local_scale().to(dtype)
     return w
 
 
@@ -217,6 +234,23 @@ def attn_cuts(cfg: ArchConfig) -> tuple[Optional[SH.Cut], Optional[SH.Cut]]:
     s = attn_specs(cfg)
     return (SH.dim_cut(s["wq"].logical, s["wq"].shape, 1),
             SH.dim_cut(s["wk"].logical, s["wk"].shape, 1))
+
+
+def cache_seq_cut(cfg: ArchConfig, length: int) -> Optional[SH.Cut]:
+    """How the sequence dimension of a decode cache of global length
+    ``length`` is held under the active rules: read with ``dim_cut`` from
+    the cache's logical axes (``("layers", "decode_batch",
+    kv_seq_axis(n_kv), "kv_heads", "head_dim")``), so a length the axes do
+    not divide stays whole and an axis the rows took is dropped.  The rows
+    are taken to divide over their axes (the repo's rules give the rows and
+    the sequence disjoint mesh axes, so the rows' count never moves the
+    sequence's cut).  ``None`` where every rank holds it whole."""
+    rules = SH.active_rules()
+    if rules is None:
+        return None
+    rows = rules.size(rules.mesh_axes_for("decode_batch"))
+    logical = ("layers", "decode_batch", SH.kv_seq_axis(cfg.n_kv_heads), "kv_heads", "head_dim")
+    return SH.dim_cut(logical, (1, rows, length, cfg.n_kv_heads, cfg.head_dim), 2)
 
 
 def _tp_in(p, h, heads, kv):
@@ -349,6 +383,9 @@ def attn_fwd(
     cache = None
     if emit_cache is not None:
         L = emit_cache.length
+        seq = cache_seq_cut(cfg, L)
+        SH.group_of(seq)  # a cut the decode cannot combine raises here
+        k, v = SH.to_cache_rows(k), SH.to_cache_rows(v)
         if emit_cache.ring and s >= L:
             # last L positions, laid out so slot = pos % L
             shift = s % L
@@ -356,6 +393,9 @@ def attn_fwd(
                      "v": torch.roll(v[:, -L:], shift, dims=1)}
         else:
             cache = {"k": _pad_to(k, L), "v": _pad_to(v, L)}
+        if seq is not None:  # this rank's slots of the whole cache
+            cache = {n: t[:, seq.part(L)].clone(memory_format=torch.contiguous_format)
+                     for n, t in cache.items()}
     return x + y, cache
 
 
@@ -377,41 +417,12 @@ def cache_slot(pos: int, spec: AttnCacheSpec) -> int:
     return min(max(slot, 0), spec.length - 1)
 
 
-def attn_decode(
-    p,
-    x: torch.Tensor,  # (B, 1, D)
-    cache: dict,  # {"k": (B, L, Hkv, Dh), "v": ...}
-    pos: int,  # absolute position of the new token
-    cfg: ArchConfig,
-    *,
-    window: Optional[int] = None,
-    spec: AttnCacheSpec,
-):
-    """Single-token decode with linear or ring cache.  Returns (y, new_cache);
-    the cache passed in is left as it was."""
-    b = x.shape[0]
-    pos = int(pos)
-    heads, kvc = attn_cuts(cfg)
-    h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    h, wk, wv = _tp_in(p, h, heads, kvc)
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, h, cfg, positions, wk, wv)  # (B, 1, H/Hkv, Dh)
-    L = spec.length
-    slot = cache_slot(pos, spec)
-    ck, cv = cache["k"].clone(), cache["v"].clone()
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
-    kq, vq = _kv_for_heads(ck, cv, cfg, heads, kvc)
-    hq, kvh, dh = q.shape[2], kq.shape[2], q.shape[3]
-    g = hq // kvh
-    qg = q.reshape(b, kvh, g, dh)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, kq).to(torch.float32)
-    scores = torch.div(scores, torch.tensor(math.sqrt(dh), dtype=torch.float32,
-                                            device=x.device))
-    t = torch.arange(L, device=x.device)
+def _valid_slots(t: torch.Tensor, pos: int, spec: AttnCacheSpec, window) -> torch.Tensor:
+    """Which of the cache slots ``t`` (global indices) a decode step at
+    ``pos`` attends to."""
     if spec.ring:
         # absolute position stored in slot t: largest value <= pos congruent t mod L
-        abs_pos = pos - torch.remainder(pos - t, L)
+        abs_pos = pos - torch.remainder(pos - t, spec.length)
         valid = abs_pos >= 0
         if window is not None:
             valid &= abs_pos > pos - window
@@ -419,9 +430,92 @@ def attn_decode(
         valid = t <= pos
         if window is not None:
             valid &= t > pos - window
-    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(cv.dtype)
-    out = torch.einsum("bkgt,btkd->bkgd", w, vq).reshape(b, 1, hq, dh)
+    return valid
+
+
+def _decode_scores(q, k, valid):
+    """fp32 scores of one token's query heads (B, 1, H, Dh) over the cache
+    slots of ``k`` (B, T, Hkv, Dh), invalid slots at :data:`NEG_INF`:
+    (B, Hkv, H / Hkv, T)."""
+    b, _, hq, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, kvh, hq // kvh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k).to(torch.float32)
+    scores = torch.div(scores, torch.tensor(math.sqrt(dh), dtype=torch.float32,
+                                            device=q.device))
+    return torch.where(valid[None, None, None, :], scores, NEG_INF)
+
+
+def _ring_decode(q, ck, cv, valid, heads, kvc, seq: SH.Cut):
+    """Ring-decode attention: this rank's cache slots score every query
+    head it needs (all of them, gathered over the heads' group, where the
+    heads are cut over whole kv heads), give fp32 partial statistics (max,
+    sum of ``exp``, value accumulator, ``p`` cast to the value dtype for
+    the product as in ``_chunked_attention``), and the ranks of the
+    sequence's group combine them: the max all-reduced, each rank's sum and
+    accumulator rescaled by ``exp(m_local - m_global)`` and summed.  A rank
+    whose slots are all invalid has a local max of ``NEG_INF`` and sums of
+    ones: the rescale, ``exp(NEG_INF - m_global) = 0``, makes its share
+    exactly zero.  Returns this rank's heads of the output (B, 1, Hl, Dh)."""
+    gathered = heads is not None and kvc is None
+    if gathered:
+        q = SH.gather_dim(q, heads, 2)
+    b, _, hq, dh = q.shape
+    scores = _decode_scores(q, ck, valid)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(cv.dtype), cv).to(torch.float32)
+    group = SH.group_of(seq)
+    m_all = m.clone()
+    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_all)
+    stats = torch.cat([acc * corr, p.sum(dim=-1, keepdim=True) * corr], dim=-1)
+    dist.all_reduce(stats, group=group)
+    out = (stats[..., :dh] / stats[..., dh:]).to(cv.dtype).reshape(b, 1, hq, dh)
+    if gathered:
+        hl = hq // heads.size
+        out = out.narrow(2, heads.index * hl, hl)
+    return out
+
+
+def attn_decode(
+    p,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: dict,  # {"k": (B, L, Hkv, Dh), "v": ...}: this rank's slots
+    pos: int,  # absolute position of the new token
+    cfg: ArchConfig,
+    *,
+    window: Optional[int] = None,
+    spec: AttnCacheSpec,
+):
+    """Single-token decode with linear or ring cache.  Returns (y, new_cache);
+    the cache passed in is left as it was.  Where the cache's sequence is
+    cut (:func:`cache_seq_cut`), the rank holding the global slot writes
+    the new token and the ranks combine their slots' attention
+    (:func:`_ring_decode`)."""
+    b = x.shape[0]
+    pos = int(pos)
+    heads, kvc = attn_cuts(cfg)
+    L = spec.length
+    seq = cache_seq_cut(cfg, L)
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    h, wk, wv = _tp_in(p, h, heads, kvc)
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, h, cfg, positions, wk, wv)  # (B, 1, H/Hkv, Dh)
+    slot = cache_slot(pos, spec)
+    first, n = (0, L) if seq is None else (seq.part(L).start, L // seq.size)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    if first <= slot < first + n:  # this rank holds the slot
+        ck[:, slot - first] = k[:, 0].to(ck.dtype)
+        cv[:, slot - first] = v[:, 0].to(cv.dtype)
+    valid = _valid_slots(torch.arange(first, first + n, device=x.device), pos, spec, window)
+    if seq is None:
+        kq, vq = _kv_for_heads(ck, cv, cfg, heads, kvc)
+        hq, kvh, dh = q.shape[2], kq.shape[2], q.shape[3]
+        w = torch.softmax(_decode_scores(q, kq, valid), dim=-1).to(cv.dtype)
+        out = torch.einsum("bkgt,btkd->bkgd", w, vq).reshape(b, 1, hq, dh)
+    else:
+        out = _ring_decode(q, ck, cv, valid, heads, kvc, seq)
     y = SH.reduce_from(qeinsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), SH.group_of(heads))
     return x + y, {"k": ck, "v": cv}
 

@@ -32,7 +32,11 @@ vocab-parallel cross entropy (a max all-reduce, a sum-of-exp all-reduce and
 the label's logit from its owning rank), and ``forward``,
 ``forward_with_cache`` and ``decode_step`` gather whole logits.  The
 blocks cut themselves (``layers``, ``moe``, ``rwkv6``, ``mamba2``); the
-layer-stacked leading axis is never cut, so group slicing is unchanged.
+layer-stacked leading axis is never cut, so group slicing is unchanged (a
+``QTensor`` part keeps its whole scale and where it starts).  The decode
+caches are this rank's (``cache_shapes``): attention caches cut along the
+sequence where the rules cut it (``layers.cache_seq_cut``), and every
+emitted cache and state holds a decode's rows (``"decode_batch"``).
 """
 from __future__ import annotations
 
@@ -277,10 +281,12 @@ def block_fwd(kind, p, x, cfg: ArchConfig, shared, cache_len: Optional[int] = No
             x = L.mlp_fwd(p["mlp"], x, cfg)
         return x, cache
     if kind == "mamba2":
-        return M2.mamba2_fwd(p["mamba"], x, cfg, emit_state=cache_len is not None)
+        x, st = M2.mamba2_fwd(p["mamba"], x, cfg, emit_state=cache_len is not None)
+        return x, _state_rows(st)
     if kind == "mamba2_shared":
         # zamba2: a mamba block followed by the *shared* attention+MLP block
         x, st = M2.mamba2_fwd(p["mamba"], x, cfg, emit_state=cache_len is not None)
+        st = _state_rows(st)
         emit = None
         if cache_len is not None:
             emit = L.attn_cache_shape(cfg, x.shape[0], cache_len, None)
@@ -290,8 +296,15 @@ def block_fwd(kind, p, x, cfg: ArchConfig, shared, cache_len: Optional[int] = No
             return x, {"mamba": st, "attn": kv}
         return x, None
     if kind == "rwkv6":
-        return R6.rwkv6_fwd(p["rwkv"], x, cfg, emit_state=cache_len is not None)
+        x, st = R6.rwkv6_fwd(p["rwkv"], x, cfg, emit_state=cache_len is not None)
+        return x, _state_rows(st)
     raise ValueError(kind)
+
+
+def _state_rows(state):
+    """A prefill's emitted recurrent state (or ``None``) with the rows a
+    decode cache holds (``sharding.to_cache_rows``)."""
+    return None if state is None else L.tree_map(SH.to_cache_rows, state)
 
 
 def block_decode(kind, p, x, cache, pos: int, cfg: ArchConfig, shared, max_seq: int):
@@ -326,10 +339,13 @@ def block_decode(kind, p, x, cache, pos: int, cfg: ArchConfig, shared, max_seq: 
 
 
 def _group(tree: Any, gi: int) -> Any:
-    """Group ``gi`` of a layer-stacked tree (``QTensor``: payload and scale)."""
+    """Group ``gi`` of a layer-stacked tree (``QTensor``: payload and scale,
+    and where a rank's part of the payload starts; the layer axis is never
+    cut)."""
     def take(t):
         if isinstance(t, QTensor):
-            return QTensor(t.q[gi], t.scale[gi], t.axis)
+            return QTensor(t.q[gi], t.scale[gi], t.axis,
+                           None if t.start is None else t.start[1:])
         return t[gi]
 
     return L.tree_map(take, tree)
@@ -430,24 +446,29 @@ def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ArchConfig, 
 def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
     """``(shape, dtype)`` of every cache tensor a decode step takes, layer
     axis leading (the reference's abstract cache tree).  Under active
-    rules, this rank's: the kv heads where they are cut, an RWKV state's
-    heads where its time mix is cut (a mamba2 state is whole: that block
-    runs whole); ``batch`` is the rows the caller holds."""
+    rules, this rank's: the kv heads where they are cut, the sequence
+    where it is cut (``layers.cache_seq_cut``), an RWKV state's heads where
+    its time mix is cut (a mamba2 state is whole: that block runs whole);
+    ``batch`` is the rows the caller holds."""
     act = L.torch_dtype(cfg.act_dtype)
     kvc = L.attn_cuts(cfg)[1]
     kvh = cfg.n_kv_heads // (kvc.size if kvc else 1)
+
+    def kv_shape(window):
+        length = L.attn_cache_shape(cfg, batch, max_seq, window).length
+        seq = L.cache_seq_cut(cfg, length)
+        return (batch, length // (seq.size if seq else 1), kvh, cfg.head_dim)
+
     group = {}
     for i, kind in enumerate(cfg.pattern):
         window = _window_for(kind, cfg)
         if kind in ("attn", "local", "moe", "shared_attn"):
-            spec = L.attn_cache_shape(cfg, batch, max_seq, window)
-            shp = (batch, spec.length, kvh, cfg.head_dim)
+            shp = kv_shape(window)
             group[f"pos{i}"] = {"k": (shp, act), "v": (shp, act)}
         elif kind == "mamba2":
             group[f"pos{i}"] = M2.mamba2_state_shapes(cfg, batch)
         elif kind == "mamba2_shared":
-            spec = L.attn_cache_shape(cfg, batch, max_seq, None)
-            shp = (batch, spec.length, kvh, cfg.head_dim)
+            shp = kv_shape(None)
             group[f"pos{i}"] = {
                 "mamba": M2.mamba2_state_shapes(cfg, batch),
                 "attn": {"k": (shp, act), "v": (shp, act)},

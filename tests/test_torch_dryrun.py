@@ -43,7 +43,11 @@ ROOT = Path(__file__).resolve().parents[1]
 XLA_FACTOR = (0.80, 1.0)
 CELLS = [("gemma-2b", "train", {}), ("olmoe-1b-7b", "train", {}),
          ("olmoe-1b-7b", "train", {"moe_impl": "a2a", "sharded_embed_gather": True}),
-         ("rwkv6-7b", "decode", {}), ("zamba2-7b", "decode", {}), ("gemma3-12b", "decode", {})]
+         ("rwkv6-7b", "decode", {}), ("zamba2-7b", "decode", {}), ("gemma3-12b", "decode", {}),
+         ("gemma-2b", "decode", {"n_kv_heads": 1})]
+#: the decode cell whose caches' sequence is cut: one kv head, which the
+#: model axis of 2 does not divide ("kv_seq_model")
+SEQ_CUT_CELL = ("gemma-2b", "decode", {"n_kv_heads": 1})
 N_MICRO = 2
 ROWS, SEQ = 8, 64
 
@@ -60,8 +64,8 @@ SCRIPT = textwrap.dedent("""\
     mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
     out = []
     for arch, kind, extra in json.loads(sys.argv[1]):
-        cfg = get_config(arch).smoke().replace(n_kv_heads=4, param_dtype="float32",
-                                               act_dtype="float32", **extra)
+        cfg = get_config(arch).smoke().replace(**{{"n_kv_heads": 4, "param_dtype": "float32",
+                                                  "act_dtype": "float32", **extra}})
         rec = D.trace_cell(cfg, ShapeSpec("t", {seq}, {rows}, kind), ShardingRules(mesh),
                            {n_micro}, device="cpu")
         out.append(rec)
@@ -82,8 +86,8 @@ def records():
 def smoke(arch, **extra):
     from repro_torch.configs import get_config
 
-    return get_config(arch).smoke().replace(n_kv_heads=4, param_dtype="float32",
-                                            act_dtype="float32", **extra)
+    return get_config(arch).smoke().replace(**{"n_kv_heads": 4, "param_dtype": "float32",
+                                               "act_dtype": "float32", **extra})
 
 
 def leaf_bytes(cfg) -> list[int]:
@@ -143,6 +147,11 @@ def expected(arch, kind, extra) -> dict:
             add("all-reduce", 2, 2 * cfg.n_groups, act)  # the shared attention and MLP
         else:  # attention's wo and the MLP's wo, every layer
             add("all-reduce", 2, 2 * L, act)
+        if cfg.n_kv_heads % 2:  # ring-decode attention over the cut sequence, every layer:
+            h, dh = cfg.n_heads, cfg.head_dim
+            add("all-gather", 2, L, rows * h * dh * 4)  # the query heads
+            add("all-reduce", 2, L, rows * h * 4)  # the partial max
+            add("all-reduce", 2, L, rows * h * (dh + 1) * 4)  # the sums and accumulators
         return {"group_sizes": groups, "per_op_bytes": nbytes, "by_dtype": dtypes}
 
     leaves = leaf_bytes(cfg)
@@ -174,8 +183,8 @@ def expected(arch, kind, extra) -> dict:
     return {"group_sizes": groups, "per_op_bytes": nbytes, "by_dtype": dtypes}
 
 
-@pytest.mark.parametrize("i", range(len(CELLS)), ids=[f"{a}-{k}{'-a2a' if e else ''}"
-                                                      for a, k, e in CELLS])
+@pytest.mark.parametrize("i", range(len(CELLS)), ids=[
+    f"{a}-{k}{'-a2a' if 'moe_impl' in e else '-kv1' if e else ''}" for a, k, e in CELLS])
 def test_smoke_cell_traces_on_a_fake_2x2x2_mesh(records, i):
     arch, kind, extra = CELLS[i]
     rec = records[i]
@@ -241,6 +250,23 @@ def test_gemma_2b_arguments_at_pod_16x16_follow_the_specs():
         _, args = D.build_cell(cfg, SHAPES["train_4k"], ShardingRules(Pod()), 8, device="cpu")
         got = D.StepMeter().track(args)
     assert got == params + adam + batch
+
+
+def test_kv_seq_model_decode_cell_arguments_follow_the_specs(records):
+    """gemma-2b with one kv head decoding on the (2, 2, 2) mesh: the model
+    axis does not divide its kv heads, so its caches' sequence is cut over
+    "model" (``"kv_seq_model"``), and a rank's arguments are, reckoned from
+    the specs, its params' parts, its rows' tokens, and its half of every
+    cache's positions, each storage in 512-byte blocks."""
+    i = CELLS.index(SEQ_CUT_CELL)
+    cfg = smoke("gemma-2b", **SEQ_CUT_CELL[2])
+    block = lambda nb: -(-nb // 512) * 512  # noqa: E731
+    rows = ROWS // 4
+    cache = cfg.n_groups * rows * (SEQ // 2) * cfg.n_kv_heads * cfg.head_dim * 4
+    want = (sum(block(b) for b in leaf_bytes(cfg)) + block(rows * 4)
+            + 2 * len(cfg.pattern) * block(cache))
+    assert records[i]["memory"]["argument_bytes"] == want
+    assert records[i]["rows_per_device"] == rows
 
 
 def test_flops_within_a_factor_of_xla_cost_analysis():

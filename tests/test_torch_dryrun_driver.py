@@ -129,16 +129,44 @@ def test_fake_peak_equals_a_real_run():
     assert meter.bytes == fake["bytes_per_device"]
 
 
+#: the quantised decode cell on a fake ("data", "model") = (1, 2) mesh,
+#: in a subprocess (a process has one default process group)
+CUT_QUANTIZED = """\
+import json, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.specs import ShapeSpec
+
+D.fake_world(2)
+rules = ShardingRules(init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model")))
+cfg = get_config("gemma-2b").smoke().replace(n_kv_heads=4, param_dtype="bfloat16",
+                                             act_dtype="bfloat16")
+shape = ShapeSpec("t", {seq}, 4, "decode")
+out = {{k: D.trace_cell(cfg, shape, rules, 1, quantize=k == "q", device="cpu")
+       for k in ("plain", "q")}}
+print("RESULT:" + json.dumps(out))
+""".format(seq=SEQ)
+
+
 def test_quantized_cell_holds_int8_weights():
-    """``quantize=True`` traces the step on ``abstract_quantized`` weights:
-    the same FLOPs (weight-only int8 dequantises into the same einsums),
-    fewer argument bytes; a train cell refuses it."""
-    from repro_torch.distributed.sharding import HostMesh, ShardingRules
+    """``quantize=True`` traces the step on the served int8 weights: the
+    same FLOPs (weight-only int8 dequantises into the same einsums), fewer
+    argument bytes; a train cell refuses it.  Under a cut model axis (2
+    ranks) the weights are placed as ``sharding.shard`` places them, so a
+    rank's arguments are, reckoned from the specs: each int8 payload's part
+    (its weight's spec), each fp32 scale whole, the other leaves' parts,
+    the rank's tokens and caches (kv heads cut), each storage in 512-byte
+    blocks."""
+    from repro_torch.distributed import sharding as SH
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantized import default_lm_policy, quantize_lm_params
 
     cfg = smoke("gemma-2b").replace(param_dtype="bfloat16", act_dtype="bfloat16")
-    rules = ShardingRules(HostMesh(("data", "model")))
+    rules = SH.ShardingRules(SH.HostMesh(("data", "model")))
     shape = ShapeSpec("t", SEQ, 4, "decode")
     plain = D.trace_cell(cfg, shape, rules, 1, device="cpu")
     q = D.trace_cell(cfg, shape, rules, 1, quantize=True, device="cpu")
@@ -147,6 +175,41 @@ def test_quantized_cell_holds_int8_weights():
     with pytest.raises(ValueError, match="gradient"):
         D.trace_cell(cfg, ShapeSpec("t", SEQ, 4, "train"), rules, 1, quantize=True,
                      device="cpu")
+
+    proc = subprocess.run([sys.executable, "-c", CUT_QUANTIZED], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT:")][-1]
+    cut = json.loads(line[len("RESULT:"):])
+
+    class Two:
+        axis_names, shape = ("data", "model"), {"data": 1, "model": 2}
+
+    two = SH.ShardingRules(Two())
+    block = lambda nb: -(-nb // 512) * 512  # noqa: E731
+    whole = quantize_lm_params(T.init_params(0, cfg, device="cpu"), default_lm_policy(cfg))
+    specs = SH.tree_shardings(two, T.abstract_params(cfg), T.logical_axes(cfg))
+    pairs = []
+    SH.map_specs(lambda t, spec: pairs.append((t, spec)), whole, specs)
+
+    def part(t, spec):
+        return t.numel() // two.size(tuple(a for e in spec for a in SH._entry_axes(e))) * \
+            t.element_size()
+
+    want, n_q = 0, 0
+    for t, spec in pairs:
+        if isinstance(t, SH.QTensor):
+            n_q += 1
+            want += block(part(t.q, spec)) + block(t.scale.numel() * 4)
+        else:
+            want += block(part(t, spec))
+    rows, kv = 4, cfg.n_kv_heads // 2  # data = 1: every row; 4 kv heads cut over 2
+    cache = cfg.n_groups * rows * SEQ * kv * cfg.head_dim * 2
+    want += block(rows * 4) + 2 * len(cfg.pattern) * block(cache)
+    assert n_q > 0 and cut["q"]["memory"]["argument_bytes"] == want
+    assert cut["q"]["flops_per_device"] == cut["plain"]["flops_per_device"]
+    assert cut["q"]["memory"]["argument_bytes"] < cut["plain"]["memory"]["argument_bytes"]
 
 
 def test_kernel_wrapper_refuses_a_fake_tensor():
@@ -175,9 +238,13 @@ def test_driver_writes_records_the_roofline_reads(tmp_path):
     assert rec["status"] == "ok" and rec["device"] == "cpu"
     # the model axis of 16 cuts gemma-2b's MLP (16,384) and vocab (256,000),
     # not its 8 heads: the 18 MLPs' all-reduces and the embedding's, of bf16
-    # rows (twice their bytes), and the logits' all-gather
+    # rows (twice their bytes), and the logits' all-gather; its one kv head
+    # puts the caches' sequence on "model", so each of the 18 attention
+    # layers combines its ring-decode statistics: the fp32 max of every
+    # row's 8 heads, and their sums and 256-wide accumulators
     rows = 128 // 16
-    coll = 2 * 19 * rows * 2048 * 2 + rows * 256_000 * 4
+    ring = 2 * 18 * (rows * 8 * 4 + rows * 8 * (256 + 1) * 4)
+    coll = 2 * 19 * rows * 2048 * 2 + rows * 256_000 * 4 + ring
     assert rec["rows_per_device"] == rows and rec["collectives"]["total_bytes"] == coll
     assert not rec["memory"]["fits_80gb"] or rec["memory"]["peak_bytes"] <= 80e9
     skip = json.loads((tmp_path / "gemma-2b__long_500k__pod_16x16.json").read_text())
@@ -190,13 +257,14 @@ def test_driver_writes_records_the_roofline_reads(tmp_path):
     assert cell["model_flops"] == 2.0 * rec["n_params"] * 128
     assert cell["t_compute_s"] == pytest.approx(rec["flops_per_device"] / 989e12)
     table = roofline.markdown_table(tmp_path).splitlines()
-    # a rank's decode FLOPs: attention whole (q, k, v, o; scores and values
-    # over the 32,768-slot cache), the MLP and the unembedding a 16th
-    r, d, hd, ctx = rows, 2048, 8 * 256, 32_768
+    # a rank's decode FLOPs: attention's heads whole (q, k, v, o; scores and
+    # values over the rank's 2,048 of the cache's 32,768 slots), the MLP and
+    # the unembedding a 16th
+    r, d, hd, ctx = rows, 2048, 8 * 256, 32_768 // 16
     layer = 2 * r * d * (hd + 2 * 256) + 2 * r * hd * d + 2 * 2 * r * hd * ctx \
         + 3 * 2 * r * d * 16_384 // 16
     assert rec["flops_per_device"] == 18 * layer + 2 * r * d * 256_000 // 16
-    assert table[2].startswith("| gemma-2b | decode_32k | 4.371e+10") and table[2].endswith(
+    assert table[2].startswith("| gemma-2b | decode_32k | 7.470e+09") and table[2].endswith(
         "memory |")
     assert table[-1] == ("- skip x long_500k: gemma-2b (pod_16x16): pure full-attention "
                          "arch: long_500k needs sub-quadratic attention")

@@ -226,11 +226,15 @@ class _TwoRanks:
 
 def test_tp_never_falls_back_to_whole_params_or_the_cpu(monkeypatch):
     """A cut with no process group refuses to compute (it never runs the
-    program of whole parameters on its parts), a failing collective
-    propagates, and an int8 ``QTensor`` leaf refuses to be placed."""
+    program of whole parameters on its parts), a decode cache's sequence
+    cut with no process group refuses too (in the prefill's emission and
+    in the decode), a failing collective propagates, and an int8
+    ``QTensor`` leaf places as its parts: the payload's part, the whole
+    scale, and a dequantisation that is the whole's slice."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantization import QTensor
     from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     cfg = get_config("gemma-2b").smoke()
@@ -247,6 +251,24 @@ def test_tp_never_falls_back_to_whole_params_or_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.distributed, "all_reduce", failed)
     with pytest.raises(RuntimeError, match="collective failed"):
         SH.reduce_from(torch.ones(2), object())
-    q = QTensor(torch.zeros((4, 2), dtype=torch.int8), torch.ones(2), axis=1)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        SH.shard(q, ("model", None), rules, device="cpu")
+    q = QTensor(torch.arange(-4, 4, dtype=torch.int8).reshape(4, 2),
+                torch.tensor([[0.5, 0.25]]), axis=1)
+    part = SH.shard(q, QTensor(("model", None), (None, None), 1), rules, device="cpu")
+    assert part.q.shape == (2, 2) and part.start == (0, 0) and torch.equal(part.scale, q.scale)
+    assert torch.equal(part.dequantize(), q.dequantize()[:2])
+    part = SH.shard(q, (None, "model"), rules, device="cpu")  # the scale's channels cut
+    assert part.scale.shape == (1, 2) and torch.equal(part.dequantize(), q.dequantize()[:, :1])
+
+    # heads 3 stay whole over 2 ranks; the one kv head puts the cache's
+    # sequence on "model" ("kv_seq_model"), which cuts a length of 8
+    cfg3 = cfg.replace(n_heads=3)
+    ap = L.init_from_specs(torch.Generator().manual_seed(0), L.attn_specs(cfg3), cfg3)
+    x = torch.zeros((1, 4, cfg3.d_model))
+    spec = L.AttnCacheSpec(length=8, ring=False)
+    cache = {n: torch.zeros((1, 4, 1, cfg3.head_dim)) for n in ("k", "v")}
+    with SH.use_rules(rules):
+        assert L.attn_cuts(cfg3) == (None, None) and L.cache_seq_cut(cfg3, 8).size == 2
+        with pytest.raises(RuntimeError, match="no process group"):
+            L.attn_fwd(ap, x, cfg3, emit_cache=spec)
+        with pytest.raises(RuntimeError, match="no process group"):
+            L.attn_decode(ap, x[:, :1], cache, 4, cfg3, spec=spec)
