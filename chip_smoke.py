@@ -173,10 +173,13 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    must equal the fake trace's, and the predicted peak must lie within
    ``DRYRUN_PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` over the step;
    the roofline bound is printed beside phase 10's step time
-   (``dryrun_train``, ``dryrun_decode``); then gemma-2b x decode_32k on the
-   256-rank production mesh runs in a child process (``dryrun_mesh``): its
-   one kv head puts its caches' sequence on "model", and a rank's argument
-   bytes must equal those reckoned from the specs.
+   (``dryrun_train``, ``dryrun_decode``); then gemma-2b and zamba2-7b x
+   decode_32k on the 256-rank production mesh run in a child process (the
+   ``dryrun_mesh`` lines): gemma-2b's one kv head puts its caches' sequence
+   on "model", zamba2's mamba2 states are cut over "ssm_heads", a rank's
+   argument bytes must equal those reckoned from the specs, no cache axis
+   may be left uncut, and zamba2's collectives must stay under
+   ``DRYRUN_ZAMBA_COLLECTIVE_BYTES``.
 
 12. tensor parallelism over ``"model"`` (``tp_phase``, run first, before
    this process makes a CUDA context: its ranks share the card): gemma-2b at its
@@ -203,7 +206,17 @@ with the card held busy before each call (the ``tile_sweep`` lines).
    bitwise the whole's and its logits within its own nudge's limit; bf16
    at full depth, each rank's cache bytes the whole's over the world
    exactly and the first decode step's arguments and peak against the
-   dry run's.
+   dry run's.  Then zamba2-7b at its published width, one pattern period
+   deep, its mamba2 blocks head-parallel over "ssm_heads" (``tp_zamba_leg``,
+   the ``tp_zamba`` lines): one fp32 train step held as gemma-2b's is, and
+   a prefill of 4 x 1,024 tokens and 16 greedy decode steps in fp32 and
+   int8, each rank's mamba2 state the whole's bytes over the world
+   exactly, logits within ``TP_ULPS`` times the nudge's change, tokens
+   equal, int8 parts bitwise.
+
+13. the examples on the port (``examples_phase``, the ``examples`` line):
+   ``examples/torch_*.py`` on the card at the CPU test's arguments, each in
+   a child process; any exit but 0 fails.
 
 With ``--parent DIR``, K1's
 and K2's device time at every serving layer, and ``project_rows``'s and
@@ -3243,9 +3256,13 @@ def lm_train_phase(torch, np, dev, gpu_line) -> dict[str, int]:
 DRYRUN_DECODE_SLOTS, DRYRUN_DECODE_SEQ = 4, 256
 #: the predicted peak against ``torch.cuda.max_memory_allocated`` over a step
 DRYRUN_PEAK_TOL = 0.10
-#: the production-mesh cell, run in a child process (this one may hold a
-#: real process group from phase 10's collectives leg)
-DRYRUN_MESH_CELL = ("gemma-2b", "decode_32k", "single")
+#: the production-mesh cells, run in a child process (this one may hold a
+#: real process group from phase 10's collectives leg): gemma-2b's caches
+#: cut along the sequence, zamba2's mamba2 states cut over "ssm_heads"
+DRYRUN_MESH_CELLS = (("gemma-2b", "decode_32k", "single"), ("zamba2-7b", "decode_32k", "single"))
+#: a zamba2 decode_32k step's collective bytes a device, at most (its
+#: mamba2 blocks gather the projection of a rank's 8 rows, not their weights)
+DRYRUN_ZAMBA_COLLECTIVE_BYTES = 1e8
 DRYRUN_DIR = ROOT / "build" / "dryrun"
 
 
@@ -3367,8 +3384,8 @@ def _decode_arguments_from_specs(arch: str, shape_name: str, mesh=None, override
     the rules with ``overrides``, reckoned from the specs: each param's part
     of its spec, the rank's rows of tokens, and each cache's part of its
     spec (its sequence over "model" where the kv heads do not divide the
-    model axis: ``"kv_seq_model"``; a mamba2 state's ``"ssm_heads"`` whole,
-    as that block runs), each storage in 512-byte blocks.
+    model axis: ``"kv_seq_model"``; a mamba2 state's heads over
+    ``"ssm_heads"``), each storage in 512-byte blocks.
     ``tests/test_torch_lm_tp_serve.py`` holds every decode_32k and long_500k
     cell of the dry run's matrix, at both production meshes, to it."""
     import math
@@ -3386,10 +3403,9 @@ def _decode_arguments_from_specs(arch: str, shape_name: str, mesh=None, override
     cfg, shape = get_config(arch), SHAPES[shape_name]
     rules = SH.ShardingRules(Mesh(), overrides)
 
-    def part(dims, logical, nbytes, whole=()) -> int:
+    def part(dims, logical, nbytes) -> int:
         spec = rules.spec(logical, dims, record=False)
-        n = math.prod(dims) // math.prod(rules.size(SH._entry_axes(e)) for a, e in
-                                         zip(logical, spec) if a not in whole)
+        n = math.prod(dims) // math.prod(rules.size(SH._entry_axes(e)) for e in spec)
         return -(-n * nbytes // 512) * 512
 
     total = sum(part(s.shape, s.logical, L.torch_dtype(s.dtype or cfg.param_dtype).itemsize)
@@ -3401,7 +3417,7 @@ def _decode_arguments_from_specs(arch: str, shape_name: str, mesh=None, override
     def caches(sd, lg) -> int:  # ``cache_shapes``' (shape, dtype) leaves
         if isinstance(sd, dict):
             return sum(caches(sd[k], lg[k]) for k in sd)
-        return part(sd[0], lg, sd[1].itemsize, whole=("ssm_heads",))
+        return part(sd[0], lg, sd[1].itemsize)
 
     return total + caches(T.cache_shapes(cfg, shape.global_batch, shape.seq_len), logical)
 
@@ -3409,10 +3425,13 @@ def _decode_arguments_from_specs(arch: str, shape_name: str, mesh=None, override
 def dryrun_phase(torch, np, dev, gpu_line) -> None:
     """The dry run (``repro_torch.launch.dryrun``) held against the card:
     :func:`dryrun_card_checks` in a child process, its numbers printed
-    beside phase 10's step time; then one production-mesh cell, gemma-2b x
-    decode_32k x pod_16x16 at 256 fake ranks, in another child (a process
-    has one default process group, and phase 10's may be a real one) (the
-    ``dryrun_*`` lines).  Runs no hand-written kernel."""
+    beside phase 10's step time; then the production-mesh cells
+    (``DRYRUN_MESH_CELLS``: gemma-2b and zamba2-7b x decode_32k x pod_16x16
+    at 256 fake ranks) in another child (a process has one default process
+    group, and phase 10's may be a real one), each one's arguments equal to
+    the specs' reckoning and no cache axis left uncut, zamba2's collectives
+    under ``DRYRUN_ZAMBA_COLLECTIVE_BYTES`` (the ``dryrun_*`` lines).  Runs
+    no hand-written kernel."""
     import gc
 
     t_phase = time.perf_counter()
@@ -3434,27 +3453,83 @@ def dryrun_phase(torch, np, dev, gpu_line) -> None:
                                          "positions": DRYRUN_DECODE_SEQ, **decode,
                                          "gpu": gpu_line}))
 
-    arch, shape, mesh = DRYRUN_MESH_CELL
     t0 = time.perf_counter()
-    _child(f"from repro_torch.launch import dryrun; dryrun.main(["
-                  f"'--arch', {arch!r}, '--shape', {shape!r}, '--mesh', {mesh!r}, "
-                  f"'--device', {dev.type!r}, '--out', {str(DRYRUN_DIR)!r}])",
-           f"the {arch} x {shape} cell")
-    (path,) = DRYRUN_DIR.glob(f"{arch}__{shape}__pod_16x16.json")
-    rec = json.loads(path.read_text())
-    check(rec["status"] == "ok" and rec["device"].startswith(dev.type),
-          f"dryrun: the {arch} x {shape} cell: {rec.get('status')} {rec.get('error')}")
-    rec.pop("fallbacks", None)
-    from_specs = _decode_arguments_from_specs(arch, shape)
-    print("dryrun_mesh " + json.dumps({**rec, "argument_bytes_from_specs": from_specs,
-                                       "child_s": time.perf_counter() - t0, "gpu": gpu_line}))
-    # its one kv head puts the caches' sequence on "model": each rank holds a 16th
-    check(rec["memory"]["argument_bytes"] == from_specs and not rec["uncut_cache_axes"],
-          f"dryrun: the {arch} x {shape} cell's arguments {rec['memory']['argument_bytes']} "
-          f"are not the specs' {from_specs} (uncut: {rec['uncut_cache_axes']})")
+    _child("from repro_torch.launch import dryrun\n" + "".join(
+        f"dryrun.main(['--arch', {a!r}, '--shape', {sh!r}, '--mesh', {m!r}, "
+        f"'--device', {dev.type!r}, '--out', {str(DRYRUN_DIR)!r}])\n"
+        for a, sh, m in DRYRUN_MESH_CELLS), "the production-mesh cells")
+    child_s = time.perf_counter() - t0
+    for arch, shape, _ in DRYRUN_MESH_CELLS:
+        (path,) = DRYRUN_DIR.glob(f"{arch}__{shape}__pod_16x16.json")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok" and rec["device"].startswith(dev.type),
+              f"dryrun: the {arch} x {shape} cell: {rec.get('status')} {rec.get('error')}")
+        rec.pop("fallbacks", None)
+        from_specs = _decode_arguments_from_specs(arch, shape)
+        print("dryrun_mesh " + json.dumps({**rec, "argument_bytes_from_specs": from_specs,
+                                           "child_s": child_s, "gpu": gpu_line}))
+        # gemma-2b's one kv head puts the caches' sequence on "model", and
+        # zamba2's 112 ssm heads are cut 16 ways: each rank holds a 16th
+        check(rec["memory"]["argument_bytes"] == from_specs and not rec["uncut_cache_axes"],
+              f"dryrun: the {arch} x {shape} cell's arguments "
+              f"{rec['memory']['argument_bytes']} are not the specs' {from_specs} "
+              f"(uncut: {rec['uncut_cache_axes']})")
+        if arch == "zamba2-7b":
+            check(rec["collectives"]["total_bytes"] < DRYRUN_ZAMBA_COLLECTIVE_BYTES,
+                  f"dryrun: the {arch} x {shape} cell moves {rec['collectives']['total_bytes']} "
+                  f"collective bytes a device (at most {DRYRUN_ZAMBA_COLLECTIVE_BYTES:.0e})")
     print("dryrun_phase " + json.dumps({
         "phase_s": time.perf_counter() - t_phase, "parent_allocated_bytes": left,
         "parent_reserved_bytes": torch.cuda.memory_reserved(), "gpu": gpu_line}))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the examples on the port
+# ---------------------------------------------------------------------------
+
+#: each example on the port and its arguments (``tests/test_torch_examples.py``'s;
+#: ``{tmp}`` is ``EXAMPLES_DIR``)
+EXAMPLE_ARGS = {
+    "torch_quickstart.py": ["--n", "100", "--epochs", "1"],
+    "torch_serve_acoustic.py": ["--windows", "200", "--epochs", "1", "--cache", "{tmp}/detector"],
+    "torch_train_lm.py": ["--ckpt-dir", "{tmp}/ckpt"],
+    "torch_precision_sweep_lm.py": [],
+}
+EXAMPLES_DIR = ROOT / "build" / "examples"
+
+
+def examples_phase(gpu_line) -> None:
+    """The four examples on the port (``examples/torch_*.py``) on the card,
+    at the CPU test's arguments, each in a child process of its own, all at
+    once: any exit but 0 fails the phase (the ``examples`` line: each one's
+    seconds and last line)."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    EXAMPLES_DIR.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name),
+         *[a.format(tmp=EXAMPLES_DIR) for a in args]], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)) for name, args in EXAMPLE_ARGS.items()}
+    got, failed = {}, []
+    try:
+        for name, (t0, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            got[name] = {"exit": proc.returncode, "s": time.perf_counter() - t0,
+                         "last": (out.strip().splitlines() or [""])[-1]}
+            if proc.returncode:
+                failed.append(f"{name} exited {proc.returncode}: {out[-800:]} {err[-1500:]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    print("examples " + json.dumps({"runs": got, "phase_s": time.perf_counter() - t_phase,
+                                    "gpu": gpu_line}))
+    check(not failed, "examples: " + "; ".join(failed))
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3489,6 +3564,15 @@ TP_STEP_ARGS = dict(b=8, s=128, n_micro=2)  # launch.train's traffic (phase 10's
 #: gemma-2b's one kv head does not divide a model axis of 2 or 4, so its
 #: caches' sequence is cut over "model" (``"kv_seq_model"``)
 TP_SERVE_ROWS, TP_SERVE_PROMPT, TP_SERVE_SEQ, TP_SERVE_STEPS = 4, 4096, 32_768, 16
+#: the zamba2 leg: zamba2-7b at its published width (d_model 3,584, d_in
+#: 7,168, 112 ssm heads of state 64), one pattern period deep (mamba2,
+#: mamba2, mamba2_shared), fp32; its mamba2 blocks run head-parallel
+TP_ZAMBA_LAYERS, TP_ZAMBA_PARAMS = 3, 617_459_696
+#: its serving: ``TP_SERVE_ROWS`` x ``TP_ZAMBA_PROMPT`` tokens prefilled (4,096
+#: tokens a rank, over d_model's 3,584: mamba2's weight route; the decode's 4
+#: tokens and the train step's 512 a microbatch take the activation route),
+#: then ``TP_ZAMBA_STEPS`` greedy decode steps
+TP_ZAMBA_PROMPT, TP_ZAMBA_STEPS = 1024, 16
 
 
 def _tp_cfg(layers, dtype: str):
@@ -3581,10 +3665,10 @@ def _tp_within(err: dict, nudge: dict) -> dict:
         worst = max(shares, key=shares.get)
         out[key] = {"share": shares[worst], "leaf": worst, "err": err[key][worst],
                     "nudge": nudge[key][worst], "err_max": max(err[key].values()),
-                    "nudge_max": max(nudge[key].values())}
-        if shares[worst] > 1:  # what a failure looks like, leaf by leaf
-            out[key]["over"] = {k: [err[key][k], nudge[key][k]] for k in sorted(
-                shares, key=shares.get)[-6:]}
+                    "nudge_max": max(nudge[key].values()),
+                    # the six worst leaves: [share, err, nudge]
+                    "worst": {k: [shares[k], err[key][k], nudge[key][k]] for k in sorted(
+                        shares, key=shares.get)[-6:]}}
     return out
 
 
@@ -3630,7 +3714,7 @@ class _CollectiveClock:
     issues (the device synchronised before and after each), while
     entered."""
 
-    NAMES = ("all_reduce", "all_gather", "all_to_all_single")
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single", "reduce_scatter")
 
     def __init__(self, torch, dist):
         self.torch, self.dist, self.s, self.n = torch, dist, 0.0, 0
@@ -3837,30 +3921,19 @@ def tp_rank(rank: int, world: int, port: int, tp_dir: str, queue, device_type: s
             others = None
             gc.collect()
         dist.barrier()
-        del state, params, others
+        del state, params, others, pairs  # the restored state, all of it
         free()
         dist.barrier()
 
-    runs = [("fp32", TP_FP32_LAYERS, "float32"), ("bf16", None, "bfloat16")]
-    for name, layers, dtype in runs:
-        plan = None
-        if dtype == "bfloat16":
-            path = tp_dir / "predict.json"
-            t_wait = time.perf_counter()
-            while not path.exists():
-                check(time.perf_counter() - t_wait < 900, "tp: no dry-run prediction")
-                time.sleep(0.5)
-            plan = json.loads(path.read_text())
-            check("error" not in plan, f"tp: the dry run's prediction failed: {plan.get('error')}")
-            plan = plan[str(world)]
-            layers = plan["layers"]
-            if rank == 0:
-                print("tp_predict " + json.dumps({"world": world, **plan}), flush=True)
-        cfg = _tp_cfg(layers, dtype)
+    def train_run(name: str, cfg, dtype: str, plan=None) -> dict:
+        """One sharded train step of ``cfg`` against rank 0's 1-rank step
+        and its one-ulp nudge (the first world's, from its file); with
+        ``plan`` (the bf16 run) the bytes, FLOPs and peak against the dry
+        run's; world 2's fp32 run saves what world 4 restores."""
         opt = _tp_opt(dtype)
         ref = nudge = None
         t0 = time.perf_counter()
-        nudge_file = tp_dir / f"nudge_{name}_{layers}.json"  # the same 1-rank step
+        nudge_file = tp_dir / f"nudge_{name}_{cfg.n_layers}.json"  # the same 1-rank step
         if rank == 0:
             ref, nudge = _tp_reference(torch, np, cfg, dtype, dev, json.loads(
                 nudge_file.read_text()) if nudge_file.exists() else None)
@@ -3892,7 +3965,7 @@ def tp_rank(rank: int, world: int, port: int, tp_dir: str, queue, device_type: s
             torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
-        res = {"layers": layers, "dtype": dtype, "ref_s": ref_s, "place_s": place_s,
+        res = {"layers": cfg.n_layers, "dtype": dtype, "ref_s": ref_s, "place_s": place_s,
                "step_ms": step_s * 1e3,
                "card_free_bytes_at_step": res_free if cuda else None,
                "collective_s": clock.s, "collectives": clock.n,
@@ -3959,28 +4032,54 @@ def tp_rank(rank: int, world: int, port: int, tp_dir: str, queue, device_type: s
             if rank == 0:
                 res["ckpt_bytes"] = sum(f.stat().st_size for f in
                                         (tp_dir / "ckpt" / "step_0000000001").iterdir())
-        out["runs"][name] = res
         del p2, o2, m, pairs, ref, via_gloo, others
         free()
         dist.barrier()  # every rank's memory is back before rank 0's next reference
+        return res
+
+    runs = [("fp32", TP_FP32_LAYERS, "float32"), ("bf16", None, "bfloat16")]
+    for name, layers, dtype in runs:
+        plan = None
+        if dtype == "bfloat16":
+            path = tp_dir / "predict.json"
+            t_wait = time.perf_counter()
+            while not path.exists():
+                check(time.perf_counter() - t_wait < 900, "tp: no dry-run prediction")
+                time.sleep(0.5)
+            plan = json.loads(path.read_text())
+            check("error" not in plan, f"tp: the dry run's prediction failed: {plan.get('error')}")
+            plan = plan[str(world)]
+            layers = plan["layers"]
+            if rank == 0:
+                print("tp_predict " + json.dumps({"world": world, **plan}), flush=True)
+        out["runs"][name] = train_run(name, _tp_cfg(layers, dtype), dtype, plan)
     out["serve"] = tp_serve_leg(torch, np, rules, rank, world, tp_dir, dev, plan["serve"], free)
+    out["zamba"] = tp_zamba_leg(torch, np, rules, rank, world, tp_dir, dev, free, train_run)
     if rank == 0:
         (tp_dir / f"rank0_{world}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def _serve_greedy(torch, T, params, cfg, prompt, force=None, measure: bool = False) -> dict:
-    """Prefill ``prompt`` into caches of ``TP_SERVE_SEQ`` positions, then
-    ``TP_SERVE_STEPS`` greedy decode steps (feeding ``force``'s tokens
-    instead, where given): every step's last logits (fp32, on the device),
-    the tokens fed, the caches' bytes, and the decode's ms a step (host
-    clock, synchronised).  ``measure``: also the first decode step's
-    arguments (``StepMeter``) and peak (its arguments plus what
-    ``max_memory_allocated`` rose above the bytes held before it)."""
+def _serve_greedy(torch, T, params, cfg, prompt, force=None, measure: bool = False, *,
+                  seq: int | None = None, steps: int | None = None,
+                  count: bool = False) -> dict:
+    """Prefill ``prompt`` into caches of ``seq`` positions (default
+    ``TP_SERVE_SEQ``), then ``steps`` (``TP_SERVE_STEPS``) greedy decode steps (feeding ``force``'s tokens instead, where given):
+    every step's last logits (fp32, on the device), the tokens fed, the
+    caches' bytes and the recurrent states' (``conv``/``ssm``/``wkv``
+    leaves), and the decode's ms a step (host clock, synchronised).
+    ``measure``: also the first decode step's arguments (``StepMeter``) and
+    peak (its arguments plus what ``max_memory_allocated`` rose above the
+    bytes held before it).  ``count``: the first decode step runs under
+    ``CollectiveMode`` (its collectives and their bytes recorded) and the
+    ms a step are the other steps'."""
     from repro_torch.launch import dryrun as D
+    from repro_torch.launch.comm_analysis import CollectiveMode
 
     cuda = prompt.device.type == "cuda"
+    seq = TP_SERVE_SEQ if seq is None else seq
+    steps = TP_SERVE_STEPS if steps is None else steps
 
     def sync():
         if cuda:
@@ -3989,13 +4088,15 @@ def _serve_greedy(torch, T, params, cfg, prompt, force=None, measure: bool = Fal
     p = prompt.shape[1]
     out = {}
     with torch.inference_mode():
-        logits, caches = T.forward_with_cache(params, {"tokens": prompt}, cfg, TP_SERVE_SEQ)
+        logits, caches = T.forward_with_cache(params, {"tokens": prompt}, cfg, seq)
         out["cache_bytes"] = sum(t.numel() * t.element_size() for t in _tensors(caches))
-        steps, fed = [logits[:, -1].float()], []
+        out["state_bytes"] = sum(t.numel() * t.element_size() for n, t in _flat_named(caches)
+                                 if n.rsplit("/", 1)[-1] in ("conv", "ssm", "wkv"))
+        steps_out, fed = [logits[:, -1].float()], []
         cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         sync()
         t0 = time.perf_counter()
-        for i in range(TP_SERVE_STEPS):
+        for i in range(steps):
             if force is not None:
                 cur = force[i].to(prompt.device)
             fed.append(cur)
@@ -4005,16 +4106,23 @@ def _serve_greedy(torch, T, params, cfg, prompt, force=None, measure: bool = Fal
                     sync()
                     held = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
-            logits, caches = T.decode_step(params, cur, caches, p + i, cfg, TP_SERVE_SEQ)
+            if count and i == 0:
+                with CollectiveMode() as mode:
+                    logits, caches = T.decode_step(params, cur, caches, p + i, cfg, seq)
+                out["decode_collectives"] = mode.result()
+                sync()
+                t0 = time.perf_counter()
+            else:
+                logits, caches = T.decode_step(params, cur, caches, p + i, cfg, seq)
             if measure and i == 0 and cuda:
                 sync()
                 out["peak_bytes"] = (out["argument_bytes"] + torch.cuda.max_memory_allocated()
                                      - held)
-            steps.append(logits[:, -1].float())
+            steps_out.append(logits[:, -1].float())
             cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         sync()
-        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / TP_SERVE_STEPS
-    out["logits"] = torch.stack(steps)
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / (steps - 1 if count else steps)
+    out["logits"] = torch.stack(steps_out)
     out["tokens"] = torch.stack(fed).cpu()
     return out
 
@@ -4213,6 +4321,143 @@ def tp_serve_leg(torch, np, rules, rank: int, world: int, tp_dir: Path, dev, pla
     return every
 
 
+def _zamba_cfg():
+    """zamba2-7b's published config at ``TP_ZAMBA_LAYERS``, fp32."""
+    from repro_torch.configs import get_config
+
+    return get_config("zamba2-7b").replace(n_layers=TP_ZAMBA_LAYERS, param_dtype="float32",
+                                           act_dtype="float32")
+
+
+def _zamba_refs(torch, np, cfg, dev, path: Path) -> None:
+    """Rank 0's 1-rank zamba2 serving runs (no rules), written to ``path``
+    for both worlds: fp32 and its int8 bake (``default_lm_policy``), each
+    with its run on one-ulp-nudged weights fed the base run's tokens."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantized import default_lm_policy, quantize_lm_params
+
+    prompt = _serve_prompt(torch, np, cfg, dev)[:, :TP_ZAMBA_PROMPT]
+    whole = T.init_params(0, cfg, device=dev)
+    kw = dict(seq=TP_ZAMBA_PROMPT + TP_ZAMBA_STEPS, steps=TP_ZAMBA_STEPS)
+    refs = {}
+    for name, params in (("fp32", whole),
+                         ("int8", quantize_lm_params(whole, default_lm_policy(cfg)))):
+        base = _serve_greedy(torch, T, params, cfg, prompt, **kw)
+        nudged = _serve_greedy(torch, T, _nudged(torch, params, SEED), cfg, prompt,
+                               force=base["tokens"], **kw)
+        refs[name] = {"logits": base["logits"].cpu(), "tokens": base["tokens"],
+                      "state_bytes": base["state_bytes"], "decode_ms": base["decode_ms"],
+                      "nudge": float((nudged["logits"] - base["logits"]).abs().max())}
+        del base, nudged
+    torch.save(refs, path)
+
+
+def tp_zamba_leg(torch, np, rules, rank: int, world: int, tp_dir: Path, dev, free,
+                 train_run) -> dict:
+    """Phase 12's zamba2 leg in a rank world, after gemma-2b's legs:
+    zamba2-7b at its published width, one pattern period deep, its mamba2
+    blocks head-parallel over ``"ssm_heads"``, against rank 0's 1-rank
+    runs: (a) one fp32 train step (``train_run``: every leaf and Adam
+    moment within ``TP_ULPS`` times the one-ulp nudge's change, the whole
+    leaves bitwise equal on every rank); (b) fp32 serving, a prefill of
+    ``TP_SERVE_ROWS`` x ``TP_ZAMBA_PROMPT`` tokens and ``TP_ZAMBA_STEPS``
+    greedy steps: each rank's mamba2 state the whole's bytes over the world
+    exactly, the logits within ``TP_ULPS`` times the nudge's change, the
+    tokens equal; (c) the same with the int8 bake: every rank's ``w_out``
+    part dequantised bitwise the whole's slice (``w_in`` is a sensitive
+    leaf, ``*mamba/w_in*``, kept float: its part is the whole's float
+    slice), logits within the int8 run's limit, tokens equal.  Printed:
+    decode ms a step, a decode step's collectives and bytes, each route.
+    Returns each rank's results (on rank 0, all ranks')."""
+    import torch.distributed as dist
+
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dequantize_as
+    from repro_torch.models.quantized import (
+        abstract_quantized, default_lm_policy, quantize_lm_params)
+
+    t_leg = time.perf_counter()
+    cfg = _zamba_cfg()
+    check(T.param_count(cfg) == TP_ZAMBA_PARAMS, f"tp_zamba: {T.param_count(cfg)} params, "
+                                                 f"not zamba2-7b's {TP_ZAMBA_PARAMS} at "
+                                                 f"{TP_ZAMBA_LAYERS} blocks")
+    res = {"rank": rank, "train": train_run("zamba2_fp32", cfg, "float32")}
+    with SH.use_rules(rules):
+        heads = M2.head_cut(cfg)
+        like = torch.empty(0, dtype=torch.float32)
+        micro = TP_STEP_ARGS["b"] // TP_STEP_ARGS["n_micro"] * TP_STEP_ARGS["s"]
+        res["routes"] = {"train": M2.in_route(cfg, micro, like),
+                         "prefill": M2.in_route(cfg, TP_SERVE_ROWS * TP_ZAMBA_PROMPT, like),
+                         "decode": M2.in_route(cfg, TP_SERVE_ROWS, like)}
+    res["heads_cut"] = None if heads is None else [list(heads.axes), heads.size]
+
+    path = tp_dir / "zamba_ref.pt"
+    if rank == 0 and not path.exists():
+        t0 = time.perf_counter()
+        _zamba_refs(torch, np, cfg, dev, path)
+        res["ref_s"] = time.perf_counter() - t0
+        free()
+    dist.barrier()
+    refs = torch.load(path) if rank == 0 else None
+    prompt = _serve_prompt(torch, np, cfg, dev)[:, :TP_ZAMBA_PROMPT]
+    kw = dict(seq=TP_ZAMBA_PROMPT + TP_ZAMBA_STEPS, steps=TP_ZAMBA_STEPS, count=True)
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.ssm_head_dim
+    whole_state = (TP_SERVE_ROWS * cfg.n_layers * ((cfg.conv_kernel - 1) * d_in
+                                                   + nh * cfg.ssm_state * cfg.ssm_head_dim) * 4)
+
+    def against(name, run) -> dict:
+        got = {"state_bytes": run["state_bytes"], "whole_state_bytes": whole_state,
+               "state_exact": run["state_bytes"] * world == whole_state,
+               "decode_ms": run["decode_ms"],
+               "decode_collectives": run["decode_collectives"]["counts"],
+               "decode_collective_bytes": run["decode_collectives"]["total_bytes"]}
+        if refs is not None:
+            want = refs[name]
+            err = float((run["logits"] - want["logits"].to(run["logits"].device)).abs().max())
+            got.update(err=err, nudge=want["nudge"], share=err / (TP_ULPS * want["nudge"]),
+                       tokens_equal=bool(torch.equal(run["tokens"], want["tokens"])),
+                       ref_state_bytes=want["state_bytes"], ref_decode_ms=want["decode_ms"])
+        return got
+
+    specs = SH.tree_shardings(rules, T.abstract_params(cfg), T.logical_axes(cfg))
+    whole = T.init_params(0, cfg, device=dev)
+    params = SH.shard_tree(whole, specs, rules, device=dev)
+    with SH.use_rules(rules):
+        res["fp32"] = against("fp32", _serve_greedy(torch, T, params, cfg, prompt, **kw))
+    del params
+
+    policy = default_lm_policy(cfg)
+    qwhole = quantize_lm_params(whole, policy)
+    del whole
+    qspecs = SH.tree_shardings(rules, *abstract_quantized(
+        T.abstract_params(cfg), T.logical_axes(cfg), policy))
+    qparams = SH.shard_tree(qwhole, qspecs, rules, device=dev)
+    parts = {}
+    for (n, w, spec), (_, part, _) in zip(_tp_pairs(qwhole, qspecs), _tp_pairs(qparams, qspecs)):
+        if n.endswith(("mamba/w_in", "mamba/w_out")):
+            pspec = spec.q if isinstance(w, QTensor) else spec
+            want = SH.shard(dequantize_as(w, torch.float32), pspec, rules, device=dev)
+            parts[n] = {"int8": isinstance(w, QTensor),
+                        "cut": bool(SH.spec_cuts(pspec, rules)),
+                        "bitwise": bool(torch.equal(
+                            _bits(torch, dequantize_as(part, torch.float32)), _bits(torch, want)))}
+            del want
+    del qwhole
+    with SH.use_rules(rules):
+        res["int8"] = {"parts": parts, **against(
+            "int8", _serve_greedy(torch, T, qparams, cfg, prompt, **kw))}
+    del qparams
+    free()
+    res["leg_s"] = time.perf_counter() - t_leg
+    every = [None] * world
+    dist.all_gather_object(every, res)
+    return every
+
+
 def tp_predict(path: str, total_memory, device_type: str = "cuda") -> None:
     """The dry run's prediction for phase 12's bf16 runs (a child process:
     a fake world per mesh): each world's depth (the published 18 layers,
@@ -4349,6 +4594,33 @@ def _tp_report(w: dict, dev, gpu_line: str) -> list[str]:
                   f"tp_serve: world {world} rank {r['rank']}: predicted decode peak "
                   f"{r['bf16']['pred']['peak_bytes']} is {err:+.3f} of the card's "
                   f"{r['bf16']['peak_bytes']}")
+    zs = w["zamba"]
+    z = zs[0]
+    print("tp_zamba " + json.dumps({
+        "world": world, "mesh": w["mesh"], "arch": "zamba2-7b", "layers": TP_ZAMBA_LAYERS,
+        "params": TP_ZAMBA_PARAMS, "rows": TP_SERVE_ROWS, "prompt": TP_ZAMBA_PROMPT,
+        "steps": TP_ZAMBA_STEPS, **z,
+        "ranks_state_bytes": {k: [r[k]["state_bytes"] for r in zs] for k in ("fp32", "int8")},
+        "ranks_parts_bitwise": [all(v["bitwise"] for v in r["int8"]["parts"].values())
+                                for r in zs], "gpu": gpu_line}), flush=True)
+    t, a, q = z["train"], z["fp32"], z["int8"]
+    check(t["within"] and t["whole_leaves_equal"] and t["losses_equal"] and t["ipc_equals_gloo"],
+          f"tp_zamba: world {world}: the sharded step is not the 1-rank step's "
+          f"({t['against_one_rank']}, whole leaves equal {t['whole_leaves_equal']}, "
+          f"losses equal {t['losses_equal']})")
+    check(z["heads_cut"] == [["model"], world] and z["routes"]["prefill"] == "weight"
+          and z["routes"]["decode"] == "activation",
+          f"tp_zamba: world {world}: heads cut {z['heads_cut']}, routes {z['routes']}")
+    check(all(r[k]["state_exact"] for r in zs for k in ("fp32", "int8"))
+          and a["ref_state_bytes"] == a["whole_state_bytes"],
+          f"tp_zamba: world {world}: a rank's mamba2 state is not the whole's "
+          f"{a['whole_state_bytes']} over {world}: {[r['fp32']['state_bytes'] for r in zs]}")
+    check(a["share"] <= 1 and a["tokens_equal"],
+          f"tp_zamba: world {world}: fp32 serving is not the 1-rank run's: {a}")
+    check(all(v["bitwise"] for r in zs for v in r["int8"]["parts"].values())
+          and any(v["int8"] and v["cut"] for v in q["parts"].values())
+          and q["share"] <= 1 and q["tokens_equal"],
+          f"tp_zamba: world {world}: int8 serving: {q}")
     return failed
 
 
@@ -4716,6 +4988,7 @@ def main(argv: list[str] | None = None) -> int:
         add(lm_phase(torch, np, dev, gpu_line))
         add(lm_train_phase(torch, np, dev, gpu_line))
         dryrun_phase(torch, np, dev, gpu_line)
+        examples_phase(gpu_line)
         if args.parent is not None:
             compare_phase(args.parent.resolve(), gpu_line)
         for name in kernels:

@@ -34,7 +34,10 @@ its own rows of the batch, and the blocks compute on those parts with the
 Megatron-style autograd collectives at the end of this module over
 :meth:`ShardingRules.group`: ``copy_to`` where a whole activation enters
 work split over a group, ``reduce_from`` where partial results leave it,
-``gather_dim`` where a block needs a cut leaf (or activation) whole.  A
+``gather_dim`` where a block needs a cut leaf (or activation) whole for
+work every rank does alike, ``gather_partials`` and ``sum_partials`` where
+a gathered tensor or a summed value is then used by each rank on its own
+share (their backwards sum the ranks' partial gradients).  A
 block asks :func:`dim_cut` whether a dimension of one of its leaves is cut,
 from the leaf's logical axes, its global shape and the active rules, and
 never guesses from the shapes it is handed.  A mesh axis of size 1 cuts
@@ -590,6 +593,50 @@ class _GatherDim(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
 
 
+class _GatherPartials(torch.autograd.Function):
+    """Forward all-gather along ``dim`` over a cut's group, backward
+    reduce-scatter: a cut tensor made whole for work each rank of the group
+    does only in part (its own heads' columns, and a share of the columns
+    every rank reads), so the gradient of the whole that each rank computes
+    is a partial sum, and a part's gradient is the sum over the ranks of
+    their gradients of that part.  (``_GatherDim``'s backward keeps this
+    rank's slice of its own gradient, which is right only where every rank
+    computes the whole gradient alike.)"""
+
+    @staticmethod
+    def forward(ctx, x, cut, dim):
+        ctx.group, ctx.dim = group_of(cut), dim
+        return _all_gather_dim(x, ctx.group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [p.contiguous() for p in g.chunk(dist.get_world_size(ctx.group), dim=ctx.dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=ctx.group)
+        return out, None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    """Forward all-reduce (sum), backward all-reduce: partial sums (a norm's
+    sum of squares over this rank's channels) combined into a value that
+    each rank then uses on its own share (its channels), so the gradient
+    each rank computes for the sum is partial as well.  (``_ReduceFrom``'s
+    identity backward is right only where every rank uses the sum alike.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)  # never reduce autograd's own buffer
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class _AllToAll(torch.autograd.Function):
     """``all_to_all`` of equal chunks of dim 0 (``lax.all_to_all(...,
     split_axis=0, concat_axis=0)``); its transpose is itself."""
@@ -644,6 +691,26 @@ def gather_dim(x, cut: Optional[Cut], dim: int):
     return _GatherDim.apply(x, cut, dim % x.ndim)
 
 
+def gather_partials(x, cut: Optional[Cut], dim: int):
+    """``x`` joined with the other parts of ``cut`` along ``dim`` (an
+    identity for ``cut`` ``None``) for work each rank does in part: the
+    backward sums the ranks' gradients and keeps this rank's part (a
+    reduce-scatter).  A ``QTensor`` (which takes no gradient): its payload
+    joined, as :func:`gather_dim` joins it."""
+    if cut is None:
+        return x
+    if isinstance(x, QTensor):
+        return gather_dim(x, cut, dim)
+    return _GatherPartials.apply(x, cut, dim % x.ndim)
+
+
+def sum_partials(x: torch.Tensor, cut: Optional[Cut]) -> torch.Tensor:
+    """The sum over ``cut``'s group of each rank's partial ``x`` (an
+    identity for ``cut`` ``None``), for a value each rank uses on its own
+    share: the backward sums the ranks' gradients too."""
+    return x if cut is None else _SumPartials.apply(x, group_of(cut))
+
+
 def group_of(cut: Optional[Cut]):
     """A cut's process group, ``None`` for a whole leaf (where every
     collective is an identity).  A cut over ranks that have no process
@@ -663,5 +730,5 @@ __all__ = [
     "is_logical_leaf", "tree_shardings", "mesh_shape", "copy_to",
     "reduce_from", "gather_from", "all_to_all", "Cut", "spec_cuts", "spec_cut", "dim_cut", "batch_cut",
     "to_cache_rows", "map_specs", "shard", "shard_tree", "unshard", "unshard_tree",
-    "global_shape", "gather_dim", "group_of",
+    "global_shape", "gather_dim", "gather_partials", "sum_partials", "group_of",
 ]

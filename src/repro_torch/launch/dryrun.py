@@ -14,13 +14,14 @@ Every rank holds what the port's program gives it (``launch/train.py``):
 its part of every parameter and Adam moment that ``tree_shardings`` cuts
 (the ``"model"`` axis), its data-parallel share of the batch (rows over
 the mesh axes of ``"batch"``/``"decode_batch"``), and decode caches cut
-where the blocks cut them: the kv heads (and RWKV state heads), and the
-sequence (``"kv_seq_model"`` over ``"model"`` where the kv heads do not
-divide the model axis; the long-context rules' ``"kv_seq"`` over
-``"data"`` and ``"kv_seq_model"`` over both), which the decode's
-ring-decode attention combines.  Not ported, and so whole on every rank
-of ``"model"``: a mamba2 block's state (that block runs whole); a record
-names it under ``"uncut_cache_axes"``.  Int8 ``QTensor`` weights
+where the blocks cut them: the kv heads (and the RWKV and mamba2 states'
+heads, ``"heads"`` and ``"ssm_heads"``), and the sequence
+(``"kv_seq_model"`` over ``"model"`` where the kv heads do not divide the
+model axis; the long-context rules' ``"kv_seq"`` over ``"data"`` and
+``"kv_seq_model"`` over both), which the decode's ring-decode attention
+combines.  A record's ``"uncut_cache_axes"`` names any cache axis the
+reference's rules cut and the port holds whole (none since the mamba2
+state is cut).  Int8 ``QTensor`` weights
 (``quantize``) are baked whole and placed as the port places them: the
 payload cut by the weight's spec, the scale whole.
 
@@ -59,7 +60,11 @@ and so is a train step's backward of the scans' per-step slices).
 Each number is the tensor-product Lagrange extrapolation of the sampled
 ones to the cell's depth, microbatch count and length, which is exact for
 whatever is linear in depth and microbatches and polynomial in the length
-to that degree (FLOPs and collectives are; bytes nearly).  The sampled
+to that degree (FLOPs and collectives are; bytes nearly).  The samples
+run the cell's program: a mamba2 block takes the route of the cell's own
+tokens a rank (``mamba2.route_tokens``), which a shorter sample's would
+not (zamba2's train_4k: 8,192 tokens a microbatch a rank take the weight
+route, the samples' 128-384 the activation route).  The sampled
 lengths run the dense attention path, the full ones the KV-chunked path:
 the FLOPs of the two agree at multiples of the chunk.  The peak is an
 estimate (``memory["peak_is"]``): it is the largest of the step's phases
@@ -121,6 +126,7 @@ from repro_torch.launch import comm_analysis
 from repro_torch.launch.hw import HBM_BYTES
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import SHAPES, ShapeSpec, batch_specs, cache_specs, skip_reason
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 from repro_torch.training.lm import (
     TrainSettings,
@@ -144,7 +150,7 @@ SCAN_SEQ = 64
 #: logical axes over which a rank holds a share of the data
 _DATA_AXES = ("batch", "decode_batch")
 #: a decode cache's logical axes the blocks cut (with the data's)
-_CACHE_AXES = _DATA_AXES + ("kv_heads", "heads", "kv_seq", "kv_seq_model")
+_CACHE_AXES = _DATA_AXES + ("kv_heads", "heads", "ssm_heads", "kv_seq", "kv_seq_model")
 #: ops that alias their input or allocate without writing: no bytes moved
 _NO_BYTES = ("_unsafe_view", "_reshape_alias", "empty", "empty_like", "empty_strided",
              "new_empty", "new_empty_strided")
@@ -323,13 +329,15 @@ def prepare_groups(rules: ShardingRules) -> None:
 
 def uncut_cache_axes(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules) -> list[str]:
     """The logical axes of a decode cell's caches that the reference's rules
-    cut and the port holds whole: a mamba2 state's ``"ssm_heads"`` (that
-    block runs whole; ROADMAP Queue 1)."""
+    cut and the port holds whole: those of the caches' axes that
+    ``_CACHE_AXES`` leaves out and the rules map to more than one rank
+    (none: every cut the reference makes, the port makes)."""
     if shape.kind != "decode":
         return []
     _, clogical = cache_specs(cfg, shape, model_axis_size=rules.shape.get("model", 1))
-    axes = {a for lg in _leaves_logical(clogical) for a in lg}
-    return [a for a in ("ssm_heads",) if a in axes and rules.size(rules.mesh_axes_for(a)) > 1]
+    axes = {a for lg in _leaves_logical(clogical) for a in lg if a is not None}
+    return sorted(a for a in axes - set(_CACHE_AXES)
+                  if rules.size(rules.mesh_axes_for(a)) > 1)
 
 
 def _leaves_logical(tree):
@@ -426,14 +434,24 @@ def _combine(values: list, weights: list[float]):
 def _extrapolated(cfg, shape, rules, n_micro, axes, *, quantize, device) -> dict:
     period = len(cfg.pattern)
     grid = list(itertools.product(*(samples for _, samples, _ in axes)))
+    prepare_groups(rules)
+    with FakeTensorMode():  # the full-size arguments, built, not run
+        _, args = build_cell(cfg, shape, rules, n_micro, quantize=quantize, device=device)
+        argument = StepMeter().track(args)
+        rows = _rows(shape, args)
+    # a rank's tokens a block call at the cell's own size: the samples take
+    # the mamba2 route of the cell they stand for, not their own
+    tokens = rows * (1 if shape.kind == "decode" else shape.seq_len) // (
+        n_micro if shape.kind == "train" else 1)
     samples = []
-    for point in grid:
-        knobs = dict(zip((a for a, _, _ in axes), point))
-        c = cfg.replace(n_layers=knobs.get("groups", cfg.n_groups) * period)
-        m = int(knobs.get("n_micro", n_micro))
-        s = dataclasses.replace(shape, seq_len=int(knobs.get("seq_len", shape.seq_len)),
-                                global_batch=shape.global_batch * m // n_micro)
-        samples.append(trace_cell(c, s, rules, m, quantize=quantize, device=device))
+    with M2.route_tokens(tokens):
+        for point in grid:
+            knobs = dict(zip((a for a, _, _ in axes), point))
+            c = cfg.replace(n_layers=knobs.get("groups", cfg.n_groups) * period)
+            m = int(knobs.get("n_micro", n_micro))
+            s = dataclasses.replace(shape, seq_len=int(knobs.get("seq_len", shape.seq_len)),
+                                    global_batch=shape.global_batch * m // n_micro)
+            samples.append(trace_cell(c, s, rules, m, quantize=quantize, device=device))
     weights = _weights(axes, grid)
     # memory, the step's own bytes at the most microbatches: the largest of
     # the peak extrapolated linearly in depth and length (through the two
@@ -454,10 +472,6 @@ def _extrapolated(cfg, shape, rules, n_micro, axes, *, quantize, device) -> dict
     candidates = ([extrapolated(lengths[-2:])] + [extrapolated((n,)) for n in lengths]
                   if lengths else [extrapolated(None)])
     temp = max(candidates + temps)
-    with FakeTensorMode():  # the full-size arguments, built, not run
-        _, args = build_cell(cfg, shape, rules, n_micro, quantize=quantize, device=device)
-        argument = StepMeter().track(args)
-        rows = _rows(shape, args)
     out = {
         "n_micro": n_micro if shape.kind == "train" else None,
         "rows_per_device": rows,

@@ -24,9 +24,13 @@ times that for a train step.  The port's scans are Python loops that
 outer products ``k^T v`` and ``B x`` are broadcast multiplies, elementwise
 like the decay.  So the correction is ported as what the counter misses,
 the reference's term less the counted part (2·B·H·N² and 4·B·H·N·P a
-step), per device (B the rows a device holds), and applied to every
-mamba2 block, zamba2's shared-attention slot's too (the reference's loop
-skips ``mamba2_shared``).  Decode steps get none, as in the reference.
+step), per device: B the rows a device holds and H the heads it holds (a
+scan's heads over their cut under the record's mesh and rules: rwkv6's
+from ``wr``'s spec where its time mix is cut on whole heads, mamba2's from
+``a_log``'s; the reference divides its global term by every chip), and
+applied to every mamba2 block, zamba2's shared-attention slot's too (the
+reference's loop skips ``mamba2_shared``).  Decode steps get none, as in
+the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline [--out DIR] [--mesh pod_16x16]
     PYTHONPATH=src python -m repro_torch.launch.roofline --markdown   # the PERF.md table
@@ -35,13 +39,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 from pathlib import Path
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import LONG_CONTEXT_OVERRIDES, ShardingRules, use_rules
 from repro_torch.launch.hw import BF16_FLOPS_PER_S, HBM_BYTES_PER_S, NVLINK_BYTES_PER_S
 from repro_torch.launch.specs import SHAPES
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import rwkv6 as R6
 
-CHIPS = {"pod_16x16": 256, "multipod_2x16x16": 512}
+#: the production meshes' axes (``launch/mesh.make_production_mesh``)
+MESHES = {"pod_16x16": {"data": 16, "model": 16},
+          "multipod_2x16x16": {"pod": 2, "data": 16, "model": 16}}
+CHIPS = {name: math.prod(axes.values()) for name, axes in MESHES.items()}
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 
@@ -56,20 +67,40 @@ def model_flops(rec: dict, shape_name: str) -> float:
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
 
 
-def recurrence_flops_correction(arch: str, shape_name: str, rows: int) -> float:
+def mesh_rules(mesh: str | None, shape_name: str) -> ShardingRules | None:
+    """The rules a dry-run cell of ``mesh`` (a name of :data:`MESHES`) and
+    ``shape_name`` runs under (the long-context rules for long_500k), over
+    a mesh of that shape without process groups; ``None`` for no mesh."""
+    if mesh is None:
+        return None
+
+    class Mesh:
+        shape = dict(MESHES[mesh])
+        axis_names = tuple(shape)
+
+    return ShardingRules(Mesh(), LONG_CONTEXT_OVERRIDES if shape_name == "long_500k" else None)
+
+
+def recurrence_flops_correction(arch: str, shape_name: str, rows: int,
+                                mesh: str | None = None) -> float:
     """The time scans' FLOPs a device that ``FlopCounterMode`` does not
-    count (module docstring), for ``rows`` sequences a device."""
+    count (module docstring), for ``rows`` sequences a device and the heads
+    a device holds on ``mesh`` (a name of :data:`MESHES`; ``None``: every
+    head)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if shape.kind == "decode":
         return 0.0
+    with use_rules(mesh_rules(mesh, shape_name)):
+        tm, ssm = R6.rwkv6_cuts(cfg)["tm"], M2.head_cut(cfg)
     per_step = 0.0
     for kind in cfg.pattern:
         if kind == "rwkv6":
             n = cfg.rwkv_head_dim
-            per_step += 2.0 * rows * (cfg.d_model // n) * n * n
+            heads = cfg.d_model // n // (tm.size if tm else 1)
+            per_step += 2.0 * rows * heads * n * n
         elif kind in ("mamba2", "mamba2_shared"):
-            heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+            heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // (ssm.size if ssm else 1)
             per_step += 4.0 * rows * heads * cfg.ssm_state * cfg.ssm_head_dim
     total = per_step * shape.seq_len * cfg.n_groups
     return 3.0 * total if shape.kind == "train" else total
@@ -89,7 +120,8 @@ def cell_roofline(rec: dict) -> dict | None:
     if rec.get("status") != "ok":
         return None
     chips = CHIPS.get(rec["mesh"], 1)
-    corr = recurrence_flops_correction(rec["arch"], rec["shape"], rec["rows_per_device"])
+    corr = recurrence_flops_correction(rec["arch"], rec["shape"], rec["rows_per_device"],
+                                       rec["mesh"] if rec["mesh"] in MESHES else None)
     flops = rec["flops_per_device"] + corr
     out = {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
            **terms(flops, rec["bytes_per_device"], rec["collectives"]["total_bytes"]),

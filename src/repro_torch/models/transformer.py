@@ -35,8 +35,9 @@ blocks cut themselves (``layers``, ``moe``, ``rwkv6``, ``mamba2``); the
 layer-stacked leading axis is never cut, so group slicing is unchanged (a
 ``QTensor`` part keeps its whole scale and where it starts).  The decode
 caches are this rank's (``cache_shapes``): attention caches cut along the
-sequence where the rules cut it (``layers.cache_seq_cut``), and every
-emitted cache and state holds a decode's rows (``"decode_batch"``).
+sequence where the rules cut it (``layers.cache_seq_cut``), recurrent
+states on their heads (an RWKV or mamba2 block's cut), and every emitted
+cache and state holds a decode's rows (``"decode_batch"``).
 """
 from __future__ import annotations
 
@@ -448,8 +449,9 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
     axis leading (the reference's abstract cache tree).  Under active
     rules, this rank's: the kv heads where they are cut, the sequence
     where it is cut (``layers.cache_seq_cut``), an RWKV state's heads where
-    its time mix is cut (a mamba2 state is whole: that block runs whole);
-    ``batch`` is the rows the caller holds."""
+    its time mix is cut, and a mamba2 state's parts as its logical axes cut
+    them (``mamba2.state_cuts``: ``conv`` on ``d_in``, ``ssm`` on the
+    heads); ``batch`` is the rows the caller holds."""
     act = L.torch_dtype(cfg.act_dtype)
     kvc = L.attn_cuts(cfg)[1]
     kvh = cfg.n_kv_heads // (kvc.size if kvc else 1)
@@ -483,8 +485,7 @@ def cache_logical_axes(cfg: ArchConfig, seq_axis: str = "kv_seq"):
     ``"kv_seq_model"`` when the kv heads cannot shard over the model axis
     (the launcher decides by divisibility)."""
     kv = ("layers", "decode_batch", seq_axis, "kv_heads", "head_dim")
-    mamba = {"conv": ("layers", "decode_batch", None, "ssm_heads"),
-             "ssm": ("layers", "decode_batch", "ssm_heads", "ssm_state", None)}
+    mamba = M2.STATE_AXES
     group = {}
     for i, kind in enumerate(cfg.pattern):
         if kind in ("attn", "local", "moe", "shared_attn"):

@@ -19,7 +19,8 @@
   dense MoE's ``copy_to`` of its tokens and router, its combine, and its
   global-capacity count all-gather over the batch group; with a2a its
   all-to-alls and all-gathers; in decode, the forward's all-reduces and
-  all-gathers (RWKV's gate, mamba2's seven gathered leaves, the logits).
+  all-gathers (RWKV's gate, the logits; mamba2's projection gathered, its
+  norm's sums of squares and ``w_out`` reduced, as its heads are cut).
 * FLOPs within ``XLA_FACTOR`` of the reference's ``cost_analysis()`` for
   the same smoke cells, unrolled, at ``n_micro=1`` on one device: XLA also
   counts elementwise FLOPs, which ``FlopCounterMode`` does not (measured:
@@ -139,11 +140,12 @@ def expected(arch, kind, extra) -> dict:
         if arch == "rwkv6-7b":  # time mix's wo, channel mix's cv; the gate cr
             add("all-reduce", 2, 2 * L, act)
             add("all-gather", 2, L, act)
-        elif arch == "zamba2-7b":  # every block's mamba2: its seven cut leaves
-            d_in = cfg.ssm_expand * d
-            nh, n, k = d_in // cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_kernel
-            for size in (d * (2 * d_in + 2 * n + nh), k * d_in, d_in, nh, nh, nh, d_in * d):
-                add("all-gather", 2, L, size * 4)
+        elif arch == "zamba2-7b":  # every mamba2 block, head-parallel (a decode's few
+            d_in = cfg.ssm_expand * d  # tokens take the activation route): the
+            nh, n = d_in // cfg.ssm_head_dim, cfg.ssm_state  # projection's gather,
+            add("all-gather", 2, L, rows * (2 * d_in + 2 * n + nh) * 4)
+            add("all-reduce", 2, L, rows * 4)  # out_norm's sums of squares,
+            add("all-reduce", 2, L, act)  # w_out's reduce_from
             add("all-reduce", 2, 2 * cfg.n_groups, act)  # the shared attention and MLP
         else:  # attention's wo and the MLP's wo, every layer
             add("all-reduce", 2, 2 * L, act)

@@ -103,6 +103,28 @@ def test_scan_flops_counted_and_the_correction_for_the_rest():
     assert roofline.recurrence_flops_correction("gemma-2b", "train_4k", 16) == 0.0
 
 
+@pytest.mark.parametrize("mesh", ["pod_16x16", "multipod_2x16x16"])
+@pytest.mark.parametrize("arch,shape", [("rwkv6-7b", "train_4k"), ("rwkv6-7b", "prefill_32k"),
+                                        ("zamba2-7b", "train_4k"), ("zamba2-7b", "prefill_32k")])
+def test_scan_correction_counts_this_devices_heads(arch, shape, mesh):
+    """On a production mesh a device holds a 16th of rwkv6's time-mix heads
+    (64 over "model" = 16) and of zamba2's ssm heads (112), so its
+    correction is the no-cut value over 16, as the reference's global term
+    over every chip is for the same rows (its ``/ chips``, 256 or 512 chips
+    of 1/16 or 1/32 of the rows); ``cell_roofline`` reads the record's
+    mesh."""
+    from repro_torch.launch import roofline
+
+    whole = roofline.recurrence_flops_correction(arch, shape, 16)
+    assert whole > 0
+    assert roofline.recurrence_flops_correction(arch, shape, 16, mesh) == whole / 16
+    rec = {"status": "ok", "arch": arch, "shape": shape, "mesh": mesh, "rows_per_device": 16,
+           "n_params": 1,
+           "flops_per_device": 1.0, "bytes_per_device": 1.0,
+           "collectives": {"total_bytes": 0.0}, "memory": {"peak_bytes": 1, "fits_80gb": True}}
+    assert roofline.cell_roofline(rec)["recurrence_corr"] == whole / 16
+
+
 def test_fake_peak_equals_a_real_run():
     """The meter's peak over a fake trace equals its peak over the same step
     on real CPU tensors: the fake path holds the same storages."""
@@ -268,3 +290,45 @@ def test_driver_writes_records_the_roofline_reads(tmp_path):
         "memory |")
     assert table[-1] == ("- skip x long_500k: gemma-2b (pod_16x16): pure full-attention "
                          "arch: long_500k needs sub-quadratic attention")
+
+
+_ROUTE_SCRIPT = """
+import json
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.specs import ShapeSpec
+from repro_torch.models import mamba2 as M2
+
+D.SCAN_SEQ = 4
+D.fake_world(4)
+rules = ShardingRules(init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model")))
+cfg = get_config("zamba2-7b").smoke().replace(n_kv_heads=4)
+shape = ShapeSpec("t", 16, 16, "prefill")
+axes = D.extrapolation_axes(cfg, shape, 1)
+got = D._extrapolated(cfg, shape, rules, 1, axes, quantize=False, device="cpu")
+want = D.trace_cell(cfg, shape, rules, 1, device="cpu")
+seq = [s for a, s, _ in axes if a == "seq_len"][0]
+routes = [M2.in_route(cfg, 8 * n, M2.torch.empty(0)) for n in (*seq, 16)]
+print("RESULT:" + json.dumps({"got": got, "want": want, "routes": routes}))
+"""
+
+
+def test_scan_extrapolation_keeps_the_cells_mamba2_route():
+    """zamba2's smoke prefill of 16 rows x 16 positions on a fake (2, 2)
+    mesh: a rank's 8 x 16 = 128 tokens take mamba2's weight route, and its
+    samples' 8 x 4 = 32 would take the activation route (8 x 8 and 8 x 12
+    the weight route); traced as the cell's program (``route_tokens``), the
+    extrapolation's FLOPs and collectives equal the full trace's."""
+    proc = subprocess.run([sys.executable, "-c", _ROUTE_SCRIPT], capture_output=True, text=True,
+                          timeout=300, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT:")][-1]
+    r = json.loads(line[len("RESULT:"):])
+    assert r["routes"] == ["activation", "weight", "weight", "weight"]
+    got, want = r["got"], r["want"]
+    assert got["flops_per_device"] == pytest.approx(want["flops_per_device"], rel=1e-9)
+    assert got["collectives"]["counts"] == want["collectives"]["counts"]
+    assert got["collectives"]["per_op_bytes"] == pytest.approx(
+        want["collectives"]["per_op_bytes"], rel=1e-9)

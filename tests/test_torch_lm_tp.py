@@ -11,8 +11,11 @@ two subprocesses (one a mesh).  Both start from the port's seeded weights
 (``init_params(0)``, carried as numpy) and ``test_torch_lm_train``'s batch.
 
 Cases: the ten architectures' smoke configs (fp32) on the ("data",
-"model") meshes (2, 2) and (1, 4), and gemma-2b with 6 heads (``h6``),
-whose attention the model axis of 4 does not cut.  At 2 the smoke configs'
+"model") meshes (2, 2) and (1, 4), gemma-2b with 6 heads (``h6``),
+whose attention the model axis of 4 does not cut, and zamba2 with 2 ssm
+heads (``ssm2``): its mamba2 blocks run head-parallel at 2 (``w_in``'s
+contiguous cut falling inside its ``x`` columns) and whole at 4, where
+``conv_w``, ``conv_b`` and ``w_out`` are still cut on ``d_in``.  At 2 the smoke configs'
 kv heads (1, 2 or 4) divide the model axis except gemma-2b's single kv
 head; at 4 only the 4-kv-head ones do.  gemma-2b and olmoe also take the
 step as ``launch.train`` does, with Adam's clip at 1.0 (their gradient
@@ -77,6 +80,10 @@ MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 #: case name -> (architecture, config overrides on its smoke config)
 CASES = {a: (a, {}) for a in lm_arch_names()}
 CASES["gemma-2b-h6"] = ("gemma-2b", {"n_heads": 6})
+#: zamba2 with 2 ssm heads (head dim 64): cut at model 2 (``w_in``'s 274
+#: columns cut across its segments), whole at model 4 (the block runs whole
+#: with ``conv_w``, ``conv_b`` and ``w_out`` still cut on ``d_in``)
+CASES["zamba2-7b-ssm2"] = ("zamba2-7b", {"ssm_head_dim": 64})
 #: step variants: suffix -> (Adam's clip at ``CLIP``, the int8 gradient
 #: round trip ``compress_pod_grads``); the base variant ("") neither
 VARIANTS = {"": (False, False), "+clip": (True, False), "+clip+int8": (True, True)}
@@ -549,9 +556,19 @@ def test_mesh_of_one_runs_todays_step_bitwise(tmp_path):
 #: each rank's rows of the prefill's last logits and two decode steps',
 #: relative to the logits' scale (the serving tests' 2e-4 against JAX)
 SERVE_RTOL = 2e-4
+#: cases whose serving logits fp32 does not fix to ``SERVE_RTOL``: in
+#: zamba2's 2-head smoke config a mamba2 block cancels at one token of the
+#: serving prompt (row 1, position 8), where the 1-rank fp32 run is itself
+#: 0.068 (0.016 at the last position) from the same run in float64, of
+#: logits of scale 3.3, so a sum taken in another order lands as far (the
+#: head-parallel run at 2 ranks: 0.027).  Its head-parallel prefill and
+#: decode are held at the block, against the reference's GSPMD block, in
+#: ``tests/test_torch_mamba2_tp.py``; its step and its caches' shapes here.
+FP32_ILL_CONDITIONED = ("zamba2-7b-ssm2",)
+SERVE_IDS = [(m, c) for m, c in IDS if c not in FP32_ILL_CONDITIONED]
 
 
-@PARAMS
+@pytest.mark.parametrize("mesh,case", SERVE_IDS, ids=[f"{m}-{c}" for m, c in SERVE_IDS])
 def test_sharded_serving_matches_one_rank_serving(runs, mesh, case):
     """Prefill (``forward_with_cache``) and decode (``decode_step``, with
     this rank's caches: kv heads cut where they divide) of the sharded

@@ -271,8 +271,7 @@ def spec_parts(cfg, length: int) -> dict:
     """Every cache leaf's shape as its spec cuts it under the active rules:
     the whole cache's shapes (``cache_shapes`` with no rules) divided along
     each dimension the spec (over ``cache_logical_axes``, the sequence's
-    axis by ``kv_seq_axis``) cuts, but a mamba2 state's ``"ssm_heads"``
-    (that block runs whole)."""
+    axis by ``kv_seq_axis``) cuts, a mamba2 state's ``"ssm_heads"`` too."""
     rules = TS.active_rules()
     with TS.use_rules(None):
         whole = TT.cache_shapes(cfg, ROWS, length)
@@ -281,8 +280,7 @@ def spec_parts(cfg, length: int) -> dict:
     def part(sd, lg):
         shape = sd[0]
         spec = rules.spec(lg, shape, record=False)
-        return tuple(n // rules.size(TS._entry_axes(e)) if a != "ssm_heads" else n
-                     for n, a, e in zip(shape, lg, spec))
+        return tuple(n // rules.size(TS._entry_axes(e)) for n, e in zip(shape, spec))
 
     def walk(s, lg):
         return {k: walk(s[k], lg[k]) for k in s} if isinstance(s, dict) else part(s, lg)
@@ -530,8 +528,8 @@ def test_decode_cell_arguments_follow_the_specs(arch, shape_name, mesh):
     ``trace_cell`` and the extrapolation record, built on fake tensors and
     not traced, hold exactly the bytes ``chip_smoke``'s reckoning from the
     specs gives (each param's and each cache's part of its spec, a mamba2
-    state's ``"ssm_heads"`` whole), and no cache axis but ``"ssm_heads"``
-    is left uncut."""
+    state's heads over ``"ssm_heads"``), and no cache axis is left
+    uncut."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg, shape, mesh_shape = tget_config(arch), SHAPES[shape_name], RULE_MESHES[mesh]
@@ -542,4 +540,4 @@ def test_decode_cell_arguments_follow_the_specs(arch, shape_name, mesh):
         got = DR.StepMeter().track(args)
     want = _chip_smoke()._decode_arguments_from_specs(arch, shape_name, mesh_shape, overrides)
     assert got == want
-    assert set(DR.uncut_cache_axes(cfg, shape, rules)) <= {"ssm_heads"}
+    assert DR.uncut_cache_axes(cfg, shape, rules) == []

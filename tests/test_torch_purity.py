@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
-Every ``repro_torch`` module and ``chip_smoke.py`` import in a fresh
+Every ``repro_torch`` module, ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``) import in a fresh
 interpreter in which an import hook makes ``jax``, ``jaxlib`` and ``repro``
 unimportable.  Entry points asked for the default device raise without a
 GPU instead of dropping to the CPU.
@@ -21,6 +22,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+#: the port's examples (``examples/torch_*.py``)
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -43,9 +46,10 @@ assert {"repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.trai
         "repro_torch.launch.dryrun", "repro_torch.launch.comm_analysis",
         "repro_torch.launch.roofline", "repro_torch.launch.hw",
         "repro_torch.core.sequential"} <= set(names)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-mod = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(mod)
+for path in sys.argv[1:]:  # chip_smoke.py and the port's examples
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print(len(names))
@@ -54,7 +58,8 @@ print(len(names))
 
 def test_port_imports_without_jax_or_repro():
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py")],
+        [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py"),
+         *map(str, EXAMPLES)],
         capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         cwd=ROOT,
@@ -99,7 +104,7 @@ def test_dry_run_imports_without_jax_repro_process_group_or_environment():
 def test_no_jax_or_repro_import_statements():
     pattern = re.compile(
         r"^\s*(import\s+(jax|repro|ml_dtypes)\b|from\s+(jax|repro|ml_dtypes)(\.|\s))", re.M)
-    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", *EXAMPLES]:
         assert not pattern.search(path.read_text()), path
 
 
