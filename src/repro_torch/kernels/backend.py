@@ -16,9 +16,15 @@ with ``ctypes``.  The library name carries a hash of every source and
 header, so an edited kernel or header is never served from a stale build.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a non-zero code into an exception.
+
+The program's own instrumentation lives here too: the wrappers' launch
+counters (:func:`count_launch`) and the profiler spans (:func:`span`,
+recorded inside :func:`program_spans`) that mark its layers in a
+``torch.profiler`` trace.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -245,6 +251,38 @@ def count_launch(wrapper) -> None:
     unlocked ``+= 1`` could lose a count."""
     with _count_lock:
         wrapper.launches += 1
+
+
+#: prefix of every program span's name (what a trace reader matches)
+SPAN_PREFIX = "repro_torch."
+_NO_SPAN = contextlib.nullcontext()
+#: open :func:`program_spans` scopes, over every thread
+_span_scopes = 0
+
+
+@contextlib.contextmanager
+def program_spans():
+    """Record the program's spans (:func:`span`) inside this scope while a
+    ``torch.profiler`` session runs.  Off by default: a reader of the trace
+    that counts every host event as an operator would take a span for one."""
+    global _span_scopes
+    with _count_lock:
+        _span_scopes += 1
+    try:
+        yield
+    finally:
+        with _count_lock:
+            _span_scopes -= 1
+
+
+def span(name: str):
+    """A profiler span ``repro_torch.<name>`` (``record_function``) around a
+    part of the program, inside :func:`program_spans` while a profiler
+    records; else one shared null context, so that a span costs a flag
+    check and no ``record_function`` when nothing reads it."""
+    if _span_scopes and torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 def check(err: int, name: str) -> None:

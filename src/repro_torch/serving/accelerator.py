@@ -53,7 +53,7 @@ from repro_torch.core.quantization import bf16_round, fxp8_quantize, int8_symmet
 from repro_torch.data.features import N_SAMPLES
 from repro_torch.data.features_torch import feature_rows
 from repro_torch.distributed.sharding import STREAM_AXIS
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import resolve_device, span
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q
 from repro_torch.kernels.cordic_act import cordic_softmax
 from repro_torch.kernels.frontend import project_rows
@@ -99,49 +99,71 @@ def forward_quantized(
     raw_windows: bool = False,
 ) -> torch.Tensor:
     """(B, M) features (or, with ``raw_windows``, (B, 12800) raw windows) on
-    the artifact's device -> (B, n_classes) probabilities."""
-    if raw_windows:
-        x = feature_rows(x, qp.feature_kind)
-    act_axis = 0 if per_sample_acts else None
-    bsz = x.shape[0]
-    conv_modes, dense_modes = qp.layer_modes
-    h = x[:, :, None].to(torch.float32)
-    for layer, lmode in zip(qp.convs, conv_modes):
-        if lmode in ("int8", "fxp8"):
-            hq = _quantizer(lmode)(h, axis=act_axis)  # per-request act quant
-            h = conv1d_fused_q(
-                hq.q,
-                layer["w"].q,
-                hq.scale.reshape(-1, 1) if per_sample_acts else hq.scale,
-                layer["w"].scale,
-                layer["b"],
-                act="relu",  # CORDIC ReLU == max(v, 0): fused into the epilogue
-            )
-        else:
-            hin, w = _float_operands(h, layer["w"], lmode)
-            h = relu(_conv1d_float(hin, w) + layer["b"])
-        h = maxpool2(h)
-    if qp.keep_frames is not None:
-        h = h[:, : qp.keep_frames, :]  # pruned artifact: boundary-frame trim
-    h = h.reshape(bsz, -1)  # (frames, channels) row-major
-    for i, (layer, lmode) in enumerate(zip(qp.denses, dense_modes)):
-        act = "relu" if i < len(qp.denses) - 1 else None
-        if lmode in ("int8", "fxp8"):
-            hq = _quantizer(lmode)(h, axis=act_axis)
-            h = quant_matmul(
-                hq.q,
-                layer["w"].q,
-                hq.scale.reshape(bsz if per_sample_acts else 1, 1),
-                layer["w"].scale.reshape(1, -1),
-                layer["b"],
-                act=act,
-            )
-        else:
-            hin, w = _float_operands(h, layer["w"], lmode)
-            h = project_rows(hin, w) + layer["b"]
-            if act == "relu":
-                h = relu(h)
-    return cordic_softmax(h)
+    the artifact's device -> (B, n_classes) probabilities.
+
+    Under a profiler (inside :func:`~repro_torch.kernels.backend.program_spans`)
+    the work is marked with spans: ``repro_torch.forward`` around the call;
+    ``input``, one span a layer (``conv{i}``, ``dense{i}``) with the children
+    its mode has (``.quantize``, the activation quantiser; ``.kernel``, K2,
+    K1 or the float path; ``.pool``), ``flatten`` (the keep-frames trim and
+    the reshape) and ``softmax`` (K3) under it.  The raw front-end has none."""
+    with span("forward"):
+        if raw_windows:
+            x = feature_rows(x, qp.feature_kind)
+        act_axis = 0 if per_sample_acts else None
+        bsz = x.shape[0]
+        conv_modes, dense_modes = qp.layer_modes
+        with span("input"):
+            h = x[:, :, None].to(torch.float32)
+        for i, (layer, lmode) in enumerate(zip(qp.convs, conv_modes)):
+            name = f"conv{i}"
+            with span(name):
+                if lmode in ("int8", "fxp8"):
+                    with span(name + ".quantize"):
+                        hq = _quantizer(lmode)(h, axis=act_axis)  # per-request act quant
+                    with span(name + ".kernel"):
+                        h = conv1d_fused_q(
+                            hq.q,
+                            layer["w"].q,
+                            hq.scale.reshape(-1, 1) if per_sample_acts else hq.scale,
+                            layer["w"].scale,
+                            layer["b"],
+                            act="relu",  # CORDIC ReLU == max(v, 0): fused into the epilogue
+                        )
+                else:
+                    with span(name + ".kernel"):
+                        hin, w = _float_operands(h, layer["w"], lmode)
+                        h = relu(_conv1d_float(hin, w) + layer["b"])
+                with span(name + ".pool"):
+                    h = maxpool2(h)
+        with span("flatten"):
+            if qp.keep_frames is not None:
+                h = h[:, : qp.keep_frames, :]  # pruned artifact: boundary-frame trim
+            h = h.reshape(bsz, -1)  # (frames, channels) row-major
+        for i, (layer, lmode) in enumerate(zip(qp.denses, dense_modes)):
+            name = f"dense{i}"
+            act = "relu" if i < len(qp.denses) - 1 else None
+            with span(name):
+                if lmode in ("int8", "fxp8"):
+                    with span(name + ".quantize"):
+                        hq = _quantizer(lmode)(h, axis=act_axis)
+                    with span(name + ".kernel"):
+                        h = quant_matmul(
+                            hq.q,
+                            layer["w"].q,
+                            hq.scale.reshape(bsz if per_sample_acts else 1, 1),
+                            layer["w"].scale.reshape(1, -1),
+                            layer["b"],
+                            act=act,
+                        )
+                else:
+                    with span(name + ".kernel"):
+                        hin, w = _float_operands(h, layer["w"], lmode)
+                        h = project_rows(hin, w) + layer["b"]
+                        if act == "relu":
+                            h = relu(h)
+        with span("softmax"):
+            return cordic_softmax(h)
 
 
 def _check_raw_windows(qp: QuantizedParams, x: torch.Tensor, feature_kind: str | None):
