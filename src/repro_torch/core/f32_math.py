@@ -20,7 +20,11 @@ kernel (``csrc/cordic_softmax.cu``) carries the same ``exp`` with
 """
 from __future__ import annotations
 
+import math
+import threading
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 #: float32(ln 2), the constant ``jnp.exp2`` multiplies by and ``jnp.log2``
 #: divides by (0x3F317218)
@@ -46,10 +50,36 @@ _LOG_P = (
 _SQRTHF = 0.707106781186547524
 
 
+_consts: dict[tuple, torch.Tensor] = {}
+_consts_lock = threading.Lock()
+
+
+def const_f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """The float32 0-d tensor ``v`` on ``like``'s device, made once a value
+    and device and kept.  A tensor operand, so no kernel ever folds it into
+    a reciprocal or a wider type; made once, so a forward that uses it
+    copies nothing from the host and never waits on the card after its
+    first call (and can be captured into a CUDA graph).  It is made outside
+    inference mode and without grad, so a training path may save it for
+    backward, and it is never written to.  A fake ``like`` (the dry run's
+    ``FakeTensorMode``) gets a constant of its own mode, not kept."""
+    if isinstance(like, FakeTensor):
+        return torch.tensor(v, dtype=torch.float32, device=like.device)
+    key = (v, math.copysign(1.0, v), like.device)
+    t = _consts.get(key)
+    if t is None:
+        with _consts_lock:
+            t = _consts.get(key)
+            if t is None:
+                with torch.inference_mode(False), torch.no_grad():
+                    t = torch.tensor(v, dtype=torch.float32, device=like.device)
+                _consts[key] = t
+    return t
+
+
 def _f(v: float, like: torch.Tensor) -> torch.Tensor:
-    """A float32 constant on ``like``'s device (a tensor operand, so no
-    kernel ever folds it into a reciprocal or a wider type)."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """The float32 constant ``v`` on ``like``'s device (:func:`const_f32`)."""
+    return const_f32(v, like)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ accuracy tables: PwQ for weights (paper eqs. 4-6), PACT for activations
 Bitwise parity with the reference rests on these details:
 
 * every division is by a tensor on the operand's device: PyTorch's CUDA
-  division by a host scalar multiplies by its reciprocal instead;
+  division by a host scalar multiplies by its reciprocal instead.  Each
+  such constant is made once a value and device and kept (``_const``), so
+  the quantisers copy nothing from the host and never wait on the card;
 * ``torch.round`` rounds half to even, as ``jnp.round`` does;
 * the FXP8 exponent and scale use the reference's own ``log2``/``exp2``
   bits (:mod:`repro_torch.core.f32_math`), which are not exact at powers
@@ -31,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.f32_math import exp2_f32, log2_f32
+from repro_torch.core.f32_math import const_f32, exp2_f32, log2_f32
 
 
 class Precision(str, enum.Enum):
@@ -94,7 +96,9 @@ class QTensor:
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """The float32 constant ``v`` on ``like``'s device, made once
+    (:func:`~repro_torch.core.f32_math.const_f32`)."""
+    return const_f32(v, like)
 
 
 def _amax(w: torch.Tensor, axis: Optional[int]) -> torch.Tensor:

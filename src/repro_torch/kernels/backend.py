@@ -18,9 +18,10 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a non-zero code into an exception.
 
 The program's own instrumentation lives here too: the wrappers' launch
-counters (:func:`count_launch`) and the profiler spans (:func:`span`,
-recorded inside :func:`program_spans`) that mark its layers in a
-``torch.profiler`` trace.
+counters (:func:`count_launch`; a CUDA graph's capture records them with
+:func:`record_launches` and each replay adds them with :func:`add_launches`)
+and the profiler spans (:func:`span`, recorded inside :func:`program_spans`)
+that mark its layers in a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -203,6 +204,10 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+#: every :class:`SplitScratch` made, so that a CUDA graph can hold the pairs it reads
+_split_scratches: list["SplitScratch"] = []
+
+
 class SplitScratch:
     """The workspace and tile counters of a kernel whose grid splits a sum
     over blocks (K1's K splits, ``project_rows``'s chunks of k), one pair
@@ -216,6 +221,7 @@ class SplitScratch:
         self.dtype = dtype
         self._table: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
         self._lock = threading.Lock()
+        _split_scratches.append(self)
 
     def __getitem__(self, key: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         return self._table[key]
@@ -241,16 +247,55 @@ class SplitScratch:
             self._table.pop((device, stream), None)
 
 
+def split_scratch_of(device: torch.device, stream: int) -> list[torch.Tensor]:
+    """The workspaces and counters every :class:`SplitScratch` holds for
+    ``device`` and ``stream`` now: what a graph captured on that stream
+    reads, and keeps alive after a larger call has grown the table."""
+    out = []
+    for scratch in _split_scratches:
+        with scratch._lock:
+            out.extend(scratch._table.get((device, stream), ()))
+    return out
+
+
 _count_lock = threading.Lock()
+#: the launches a thread's graph capture records (:func:`record_launches`)
+_recording = threading.local()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the launch counter a kernel's
-    wrapper bumps where it launches its kernel.  Under a lock: the fleet's
-    execution lanes launch kernels from several threads at once, and an
-    unlocked ``+= 1`` could lose a count."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.<counter>``: ``launches`` is the counter a
+    kernel's wrapper bumps where it launches its kernel.  Under a lock: the
+    fleet's execution lanes launch kernels from several threads at once, and
+    an unlocked ``+= 1`` could lose a count.  Inside :func:`record_launches`
+    on this thread the launch is recorded instead: a captured launch runs
+    only when its graph is replayed."""
+    rec = getattr(_recording, "launches", None)
+    if rec is not None:
+        rec[wrapper, counter] = rec.get((wrapper, counter), 0) + 1
+        return
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Record, not count, this thread's :func:`count_launch` calls inside
+    the scope (a CUDA graph's capture); yields the record, which
+    :func:`add_launches` adds to the counters once per replay."""
+    rec: dict = {}
+    _recording.launches = rec
+    try:
+        yield rec
+    finally:
+        _recording.launches = None
+
+
+def add_launches(rec: dict) -> None:
+    """Add a :func:`record_launches` record to its counters."""
+    with _count_lock:
+        for (wrapper, counter), n in rec.items():
+            setattr(wrapper, counter, getattr(wrapper, counter) + n)
 
 
 #: prefix of every program span's name (what a trace reader matches)
@@ -275,12 +320,17 @@ def program_spans():
             _span_scopes -= 1
 
 
+def spans_recording() -> bool:
+    """True inside :func:`program_spans` while a profiler records."""
+    return bool(_span_scopes) and torch.autograd._profiler_enabled()
+
+
 def span(name: str):
     """A profiler span ``repro_torch.<name>`` (``record_function``) around a
     part of the program, inside :func:`program_spans` while a profiler
     records; else one shared null context, so that a span costs a flag
     check and no ``record_function`` when nothing reads it."""
-    if _span_scopes and torch.autograd._profiler_enabled():
+    if spans_recording():
         return torch.profiler.record_function(SPAN_PREFIX + name)
     return _NO_SPAN
 

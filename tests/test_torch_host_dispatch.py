@@ -1,0 +1,283 @@
+"""Host dispatch of the forward, on the CPU: the quantisers' device
+constants are made once a value and device (outside inference mode, so a
+training path may save them, and never for a fake tensor) and give the bits
+of constants made anew on each call; the conditions under which
+``accelerator_forward`` replays a CUDA graph; the kernel launches a graph's
+capture records and each replay adds; and what the graphs are keyed on to
+never serve a changed weight.  The replays themselves run only on the card
+(``tests/test_torch_graphs_gpu.py``).
+"""
+import contextlib
+import dataclasses
+import sys
+import threading
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.core import f32_math, quantization  # noqa: E402
+from repro_torch.core.quantization import fxp8_quantize, int8_symmetric  # noqa: E402
+from repro_torch.data.features import FEATURE_DIMS, N_SAMPLES  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.models import cnn1d  # noqa: E402
+from repro_torch.serving import accelerator  # noqa: E402
+from repro_torch.serving.accelerator import accelerator_forward  # noqa: E402
+from repro_torch.serving.quantized_params import quantize_params  # noqa: E402
+
+torch.set_num_threads(1)
+
+CFG = cnn1d.CNNConfig(input_len=40, channels=(4, 8, 8), hidden=8)
+#: the two module-level constant makers
+MAKERS = {"quantization._const": quantization._const, "f32_math._f": f32_math._f}
+
+
+def _uncached(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("maker", sorted(MAKERS))
+def test_one_constant_per_value_and_device(maker, device):
+    make = MAKERS[maker]
+    like = torch.empty(3, device=device)
+    with torch.inference_mode():  # the first use may come from an inference path
+        first = make(0.3217, like)
+    assert not first.is_inference() and not first.requires_grad
+    assert make(0.3217, like) is first
+    assert make(0.3217, torch.empty(2, dtype=torch.float64, device=device)) is first
+    assert make(0.3218, like) is not first
+    assert make(-0.0, like) is not make(0.0, like)
+    assert first.dtype == torch.float32 and first.ndim == 0 and first.device == like.device
+    if device == "cpu":
+        assert float(first) == float(torch.tensor(0.3217, dtype=torch.float32))
+        other = make(0.3217, torch.empty(3, device="meta"))
+        assert other is not first and other.device.type == "meta"
+
+
+def test_a_constant_first_made_in_inference_mode_can_be_saved_for_backward():
+    like = torch.empty(1)
+    with torch.inference_mode():
+        c = quantization._const(0.40625, like)
+    x = torch.ones(3, requires_grad=True)
+    (x * c).sum().backward()
+    assert torch.equal(x.grad, torch.full((3,), 0.40625))
+
+
+def test_a_fake_operand_gets_a_constant_that_is_not_kept():
+    kept = dict(f32_math._consts)
+    with FakeTensorMode() as mode:
+        like = mode.from_tensor(torch.empty(4))
+        c = f32_math._f(0.8125, like)
+    assert isinstance(c, FakeTensor)
+    assert f32_math._consts == kept
+
+
+def _data(seed: int, shape=(6, 40)) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * torch.logspace(-3, 2, shape[0])[:, None]
+    x[0, :5] = torch.tensor([0.0, -0.0, 127.0, -128.0, 1e-30])
+    return x
+
+
+@pytest.mark.parametrize("axis", [None, 0])
+@pytest.mark.parametrize("jitted", [True, False])
+@pytest.mark.parametrize("quant", [int8_symmetric, fxp8_quantize], ids=["int8", "fxp8"])
+def test_quantisers_give_the_bits_of_uncached_constants(monkeypatch, quant, jitted, axis):
+    x = _data(7)
+    got = quant(x, axis=axis, jitted=jitted)
+    with monkeypatch.context() as m:
+        m.setattr(quantization, "const_f32", _uncached)
+        m.setattr(f32_math, "const_f32", _uncached)
+        want = quant(x, axis=axis, jitted=jitted)
+    assert torch.equal(got.q, want.q)
+    assert torch.equal(got.scale.view(torch.int32), want.scale.view(torch.int32))
+
+
+def _artifact(cfg=CFG, **kw):
+    params = cnn1d.init_params(cfg, torch.Generator().manual_seed(11))
+    return params, quantize_params(params, cfg, mode="int8", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("how", ["artifact", "raw_fp32_dict", "raw_windows", "program_spans"])
+def test_cpu_calls_leave_the_graph_counters_at_zero(monkeypatch, how):
+    monkeypatch.setattr(accelerator_forward, "graph_captures", 0)
+    monkeypatch.setattr(accelerator_forward, "graph_replays", 0)
+    raw = how == "raw_windows"
+    cfg = dataclasses.replace(CFG, input_len=FEATURE_DIMS["zcr"]) if raw else CFG
+    params, qp = _artifact(cfg, feature_kind="zcr" if raw else None)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, N_SAMPLES) if raw else (3, cfg.input_len), generator=g)
+    arg = params if how == "raw_fp32_dict" else qp
+    spans = how == "program_spans"
+    with profile(activities=[ProfilerActivity.CPU]) if spans else contextlib.nullcontext(), \
+            backend.program_spans() if spans else contextlib.nullcontext():
+        for _ in range(3):
+            out = accelerator_forward(arg, x, cfg, device="cpu", raw_windows=raw)
+    assert out.shape == (x.shape[0], cfg.n_classes)
+    assert (accelerator_forward.graph_captures, accelerator_forward.graph_replays) == (0, 0)
+
+
+CUDA_ART = types.SimpleNamespace(device=torch.device("cuda", 0))
+ROWS = torch.empty(4, CFG.input_len)
+
+
+@pytest.mark.parametrize("case,params,qp,x,raw,spans,want", [
+    ("baked artifact on the card", CUDA_ART, CUDA_ART, ROWS, False, False, True),
+    ("fp32 dict baked per call", {}, CUDA_ART, ROWS, False, False, False),
+    ("artifact on the CPU", None, None, ROWS, False, False, False),
+    ("raw windows", CUDA_ART, CUDA_ART, ROWS, True, False, False),
+    ("no rows", CUDA_ART, CUDA_ART, ROWS[:0], False, False, False),
+    ("program spans recorded", CUDA_ART, CUDA_ART, ROWS, False, True, False),
+])
+def test_which_calls_replay_a_graph(case, params, qp, x, raw, spans, want):
+    if qp is None:
+        _, qp = _artifact()
+        params = qp
+    if spans:
+        with profile(activities=[ProfilerActivity.CPU]), backend.program_spans():
+            got = accelerator._graphed(params, qp, x, raw)
+    else:
+        got = accelerator._graphed(params, qp, x, raw)
+    assert got is want, case
+
+
+def test_program_spans_without_a_profiler_still_replay():
+    with backend.program_spans():
+        assert accelerator._graphed(CUDA_ART, CUDA_ART, ROWS, False)
+        assert not backend.spans_recording()
+
+
+def test_a_capture_records_launches_and_each_replay_adds_them():
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    other = []
+    with backend.record_launches() as rec:
+        backend.count_launch(wrapper)
+        backend.count_launch(wrapper)
+        # another thread's launches are not the capture's: they count at once
+        t = threading.Thread(target=lambda: other.append(backend.count_launch(wrapper)))
+        t.start()
+        t.join()
+    assert wrapper.launches == 1 and rec == {(wrapper, "launches"): 2}
+    backend.count_launch(wrapper)
+    assert wrapper.launches == 2
+    for _ in range(3):
+        backend.add_launches(rec)
+    assert wrapper.launches == 8
+
+
+def test_count_launch_bumps_a_named_counter():
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.graph_replays = 0, 5
+    backend.count_launch(wrapper, "graph_replays")
+    assert (wrapper.launches, wrapper.graph_replays) == (0, 6)
+
+
+def test_split_scratch_of_a_stream_is_what_its_graph_keeps():
+    scratch = backend.SplitScratch(torch.int32)
+    cpu = torch.device("cpu")
+    ws, counters = scratch.get(cpu, 123456789, 10, 3)
+    held = backend.split_scratch_of(cpu, 123456789)
+    assert any(t is ws for t in held) and any(t is counters for t in held)
+    grown, _ = scratch.get(cpu, 123456789, 20, 3)
+    assert grown is not ws and any(t is grown for t in backend.split_scratch_of(cpu, 123456789))
+    assert backend.split_scratch_of(cpu, 987654321) == []
+
+
+@pytest.mark.parametrize("change", ["written_in_place", "swapped", "none"])
+def test_graph_key_follows_every_weight(change):
+    _, qp = _artifact()
+    before = accelerator._versions(accelerator._leaves(qp))
+    assert len(before) == 3 * (len(qp.convs) + len(qp.denses))  # payload, scale, bias
+    if change == "written_in_place":
+        qp.convs[1]["w"].q.add_(0)
+    elif change == "swapped":
+        qp.denses[0]["b"] = qp.denses[0]["b"].clone()
+    after = accelerator._versions(accelerator._leaves(qp))
+    assert (after == before) is (change == "none")
+
+
+@pytest.mark.parametrize("extra", [0, 3])
+def test_keys_past_the_bound_stay_eager_for_good(monkeypatch, extra):
+    """Each key runs eagerly, then captures, then replays, until the artifact
+    holds ``GRAPHS_PER_ARTIFACT`` graphs; later keys run eagerly on every
+    call, and no graph is ever dropped.  The card's side is stubbed: the
+    capture records a graph whose replay does nothing."""
+    _, qp = _artifact()
+    graphs = accelerator._ForwardGraphs(qp)
+    calls = {"eager": 0, "capture": 0, "replay": 0}
+    stream = types.SimpleNamespace(cuda_stream=17)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: stream)
+    monkeypatch.setattr(accelerator_forward, "graph_replays", 0)
+
+    def eager(qp, x, per_sample_acts=True, raw_windows=False):
+        calls["eager"] += 1
+        return torch.zeros(x.shape[0], CFG.n_classes)
+
+    def capture(self, qp, x, per_sample_acts, caller, key):
+        calls["capture"] += 1
+        replay = types.SimpleNamespace(replay=lambda: calls.__setitem__("replay", calls["replay"] + 1))
+        self.graphs[key] = accelerator._Graph(
+            replay, torch.empty(x.shape), torch.zeros(x.shape[0], CFG.n_classes), {}, [])
+        return eager(qp, x)
+
+    monkeypatch.setattr(accelerator, "forward_quantized", eager)
+    monkeypatch.setattr(accelerator._ForwardGraphs, "_capture", capture)
+    n = accelerator.GRAPHS_PER_ARTIFACT + extra
+    for _ in range(4):
+        for b in range(1, n + 1):
+            out = graphs.forward(qp, torch.empty(b, CFG.input_len), True)
+            assert out.shape == (b, CFG.n_classes)
+    held = accelerator.GRAPHS_PER_ARTIFACT
+    assert len(graphs.graphs) == held and calls["capture"] == held
+    assert {k[0][0] for k in graphs.graphs} == set(range(1, held + 1))
+    assert calls["replay"] == accelerator_forward.graph_replays == 2 * held
+    assert calls["eager"] == 2 * held + 4 * extra
+    assert len(graphs.seen) == held + extra
+
+
+def _stress(fn, workers: int = 16):
+    """``fn(i)`` on ``workers`` threads at once under a short switch
+    interval; each thread's result, in order."""
+    out = [None] * workers
+    barrier = threading.Barrier(workers)
+
+    def run(i):
+        barrier.wait(timeout=30)
+        out[i] = fn(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    return out
+
+
+def test_threads_racing_for_new_constants_get_one_tensor_each():
+    like = torch.empty(1)
+    values = [0.1 + k / 997 for k in range(50)]
+    got = _stress(lambda i: [f32_math.const_f32(v, like) for v in values])
+    for k in range(len(values)):
+        assert len({id(g[k]) for g in got}) == 1
+
+
+def test_threads_racing_for_an_artifacts_graphs_get_one_cache():
+    _, qp = _artifact()
+    got = _stress(lambda i: accelerator._graphs_of(qp))
+    assert len({id(g) for g in got}) == 1
