@@ -18,6 +18,11 @@ reference as a benchmark run compares; one JSON line each.  The modes:
 
 The benchmark's own runs never run these.  Seeds share one process; each
 seed's bank is synthesised once for all its modes.
+
+A program with modes of its own (a module-level ``MODES``, as
+``programs/lm_decode.py``'s control and faults) runs them through its
+``run_cell(..., mode=...)``, with the configuration's limits taken away so
+that every number the program can compare is read.
 """
 import sys
 from pathlib import Path
@@ -27,6 +32,7 @@ if __name__ == "__main__":
                      str(Path(__file__).resolve().parents[1] / "src")]
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 
 import torch  # noqa: E402
@@ -80,6 +86,21 @@ def main(argv) -> int:
     ap.add_argument("--modes", default="program")
     args = ap.parse_args(argv)
     cell = spec.cell(args.workload)
+    program = harness.load_program(cell.config)
+    if hasattr(program, "MODES"):
+        cell = dataclasses.replace(cell, config=dict(cell.config, limits={}))
+        for seed in (int(s) for s in args.seeds.split(",")):
+            for mode in args.modes.split(","):
+                result = program.run_cell(cell, seed, args.seconds, False, mode=mode)
+                # what the run left allocated on the card: the next run in
+                # this process starts from it
+                left = torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+                print(json.dumps({"cell": cell.name, "seed": seed, "mode": mode,
+                                  "checks": result["checks"], "metrics": result["metrics"],
+                                  "memory_peak_bytes": result["device"]["memory_peak_bytes"],
+                                  "memory_left_bytes": left, "card": result["card"]}),
+                      flush=True)
+        return 0
     # every mode of one seed runs on the same bank: synthesise it once
     banks = {}
     make_bank = traffic.make_bank

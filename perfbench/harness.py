@@ -1,6 +1,12 @@
 """One run of one cell: set-up, the measured window, the traced segment,
 the comparison with the reference, and the result line.
 
+:func:`main` finds the cell's program by name (``perfbench/programs/
+<program>.py``, :func:`load_program`) and calls its ``run_cell``; the look
+for a card, the check for JAX in the process and the printed checks are
+shared by every program.  This module holds the detector's program
+(``programs/detector.py`` calls :func:`run_cell`):
+
 The window is a closed loop over blocks of ``block`` rows with
 ``inflight`` blocks queued on the card: stage block ``i`` from pinned host
 memory into its device buffer (a non-blocking copy), enqueue its forward,
@@ -32,6 +38,8 @@ from perfbench import reference, spec, tracing, traffic, weights, yardstick
 #: top-level modules that no process of the benchmark may hold: JAX and the
 #: JAX package the port was made from
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "repro")
+#: the detector's two input kinds: stored mfcc20 rows, or raw 0.8 s windows
+INPUT_KINDS = ("feat", "raw")
 
 
 @dataclasses.dataclass
@@ -154,7 +162,22 @@ def load_reader(name: str):
     return module.read
 
 
-def read_metrics(run: Run, metrics) -> dict:
+def load_program(conf: dict):
+    """The module ``perfbench/programs/<program>.py`` of configuration
+    ``conf``; raises, naming the path, where there is no such file."""
+    path = spec.program_path(conf)
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {conf.get('name')!r} names program "
+                                f"{spec.program_name(conf)!r}, and there is no file {path}")
+    mod_spec = importlib.util.spec_from_file_location(
+        "perfbench_program_" + spec.program_name(conf), path)
+    module = importlib.util.module_from_spec(mod_spec)
+    sys.modules[mod_spec.name] = module  # its dataclasses look their module up by name
+    mod_spec.loader.exec_module(module)
+    return module
+
+
+def read_metrics(run, metrics) -> dict:
     """Each metric whose reader finds something to read, by name."""
     out = {}
     for m in metrics:
@@ -209,6 +232,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
     device, raw)`` puts another forward in the program's place (the control,
     a planted fault); by default it is the program."""
     t_start = time.perf_counter() if t_start is None else t_start
+    conf, mix = cell.config, cell.traffic
+    if mix["input"] not in INPUT_KINDS:
+        raise ValueError(f"cell {cell.name!r}: the detector's input must be one of "
+                         f"{INPUT_KINDS}")
     marks = [("imports", time.perf_counter())]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -216,7 +243,6 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)
     marks.append(("card", time.perf_counter()))
-    conf, mix = cell.config, cell.traffic
     raw = mix["input"] == "raw"
     seeds = traffic.seeds(seed)
     bank = traffic.make_bank(mix, seeds.bank)
@@ -312,11 +338,13 @@ def parse_args(argv):
 def main(argv, *, t_start: float) -> int:
     args = parse_args(argv)
     cell = spec.cell(args.workload)
+    program = load_program(cell.config)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"perfbench: {cell.name} needs {cell.chips} CUDA device(s); the benchmark "
               f"runs only on the card", file=sys.stderr)
         return 2
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), t_start=t_start)
+    result = program.run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                              t_start=t_start)
     found = forbidden_modules()
     if found:
         print(f"perfbench: the run loaded {', '.join(found)}; the benchmark must load neither "

@@ -3,11 +3,15 @@ traffic file, all found by name.
 
 A cell ``<config>.<traffic>`` names a configuration,
 ``perfbench/configs/<config>.json`` (the model's sizes, the precision it is
-served in, its prune and its per-layer policy, and the limits of the
-comparison that decides ``correct``), and a traffic mix,
-``perfbench/traffic/<traffic>.json`` (input kind, block, blocks in flight,
-bank and ring sizes).  A metric is a reader, ``perfbench/metrics/<name>.py``.
-Adding any of them adds a file; no module here lists them.
+served in, the program that serves it, and the limits of the comparison
+that decides ``correct``), and a traffic mix,
+``perfbench/traffic/<traffic>.json`` (the parameters its program's
+generator reads).  A configuration's ``"program"`` (``"detector"`` where it
+names none) is ``perfbench/programs/<program>.py``, which validates its
+traffic and runs the cell; its ``"reference"``, where it names one, is
+``perfbench/references/<reference>.py``.  A metric is a reader,
+``perfbench/metrics/<name>.py``.  Adding any of them adds a file; no module
+here lists them.
 """
 from __future__ import annotations
 
@@ -21,12 +25,14 @@ ROOT = HERE.parent
 CONFIGS = HERE / "configs"
 TRAFFIC = HERE / "traffic"
 METRICS = HERE / "metrics"
+PROGRAMS = HERE / "programs"
+REFERENCES = HERE / "references"
 BENCHMARK = ROOT / "BENCHMARK.json"
 
 #: layer precisions whose layers run on the 8-bit kernels (K2 convs, K1 dense)
 EIGHT_BIT = ("int8", "fxp8")
-#: the traffic's two input kinds: stored mfcc20 rows, or raw 0.8 s windows
-INPUT_KINDS = ("feat", "raw")
+#: the program of a configuration that names none
+DEFAULT_PROGRAM = "detector"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,21 +74,40 @@ def config(name: str) -> dict:
 
 
 def traffic(name: str) -> dict:
-    mix = load_json(TRAFFIC / f"{name}.json")
-    if mix["input"] not in INPUT_KINDS:
-        raise ValueError(f"traffic {name!r}: input must be one of {INPUT_KINDS}")
-    return mix
+    """The mix's parameters; its program validates them."""
+    return load_json(TRAFFIC / f"{name}.json")
+
+
+def program_name(conf: dict) -> str:
+    return conf.get("program") or DEFAULT_PROGRAM
+
+
+def program_path(conf: dict) -> Path:
+    """The file of the configuration's program, which may not exist."""
+    return PROGRAMS / f"{program_name(conf)}.py"
 
 
 def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def _trial_reports(metric: dict, program: str, bench: dict) -> bool:
+    """A trial cell of ``program`` reports a metric that lists no cells, or
+    one that lists a cell of a configuration served by the same program."""
+    if "workloads" not in metric:
+        return True
+    configs = {c["name"]: c["file"] for c in bench["configs"]}
+    cells = {w["name"]: w["config"] for w in bench["workloads"]}
+    return any(program_name(load_json(ROOT / configs[cells[w]])) == program
+               for w in metric["workloads"] if w in cells)
+
+
 def cell(name: str, bench: dict | None = None) -> Cell:
     """The cell ``name`` of ``BENCHMARK.json``.  A name that is not there but
     is ``<config>.<traffic>`` of two files is a trial cell: it reports every
-    metric that does not list its workloads, and every other metric whose
-    reader finds something to read."""
+    metric that does not list its workloads and every metric of its
+    program's cells (:func:`_trial_reports`) whose reader finds something
+    to read."""
     bench = benchmark() if bench is None else bench
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is not None:
@@ -99,12 +124,14 @@ def cell(name: str, bench: dict | None = None) -> Cell:
     if conf_name not in config_names() or mix_name not in traffic_names():
         raise KeyError(f"no cell {name!r} in BENCHMARK.json, and no files "
                        f"configs/{conf_name}.json and traffic/{mix_name}.json")
+    conf = config(conf_name)
+    program = program_name(conf)
     return Cell(
         name=name,
-        config=config(conf_name),
+        config=conf,
         traffic=traffic(mix_name),
-        end_to_end=tuple(bench["end_to_end"]),
-        per_layer=tuple(bench["per_layer"]),
+        end_to_end=tuple(m for m in bench["end_to_end"] if _trial_reports(m, program, bench)),
+        per_layer=tuple(m for m in bench["per_layer"] if _trial_reports(m, program, bench)),
     )
 
 

@@ -151,3 +151,23 @@ def test_new_traffic_and_metric_files_are_taken_without_an_edit(tmp_path, monkey
     got = harness.read_metrics(run, cell.per_layer)
     assert got["rows_per_block"] == {"value": 8.0, "unit": "rows"}
     assert "k2_roofline" not in got  # no trace: the reader finds nothing and is left out
+
+
+def test_each_configuration_names_a_program_and_a_reference_that_exist(bench):
+    for c in bench["configs"]:
+        conf = spec.load_json(spec.ROOT / c["file"])
+        assert spec.program_path(conf).is_file(), (c["name"], spec.program_path(conf))
+        if "reference" in conf:
+            assert (spec.REFERENCES / f"{conf['reference']}.py").is_file(), c["name"]
+        assert "limits" in conf and conf["limits"], c["name"]
+        assert all(v is not None for v in conf["limits"].values() if not isinstance(v, dict))
+
+
+def test_each_listed_metric_reads_the_runs_of_one_program(bench):
+    """A reader reads one program's run record: a metric that lists its
+    cells lists the cells of one program."""
+    program = {w["name"]: spec.program_name(spec.cell(w["name"], bench).config)
+               for w in bench["workloads"]}
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            assert len({program[w] for w in m["workloads"]}) == 1, m["name"]

@@ -11,7 +11,13 @@ module keeps, from the raw events:
 * the union of the device's busy intervals, and the idle gaps between them
   inside the traced segment, each labelled with what the host was doing
   half way through it: the innermost harness phase and the outermost
-  operator under it.
+  operator under it;
+* the program's own spans (``record_function`` spans named
+  ``repro_torch.<name>``, :data:`PROGRAM_PREFIX`) by name: their count, the
+  host time they span, and the time their shadows span on the device
+  timeline (each from its first device op's start to its last op's end).
+  They are neither device work nor operators: no busy interval, idle gap
+  label or device op reads them, so a trace with them reads as without.
 """
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ import numpy as np
 
 #: prefix of the harness's own spans
 SPAN_PREFIX = "perfbench."
+#: prefix of the program's spans (``repro_torch.kernels.backend.SPAN_PREFIX``,
+#: written out here because the harness does not import the port)
+PROGRAM_PREFIX = "repro_torch."
 #: the span around the whole traced segment
 TRACED = SPAN_PREFIX + "traced"
 #: the harness's own copies (block staging, probabilities home): not the datapath's
@@ -37,8 +46,19 @@ class DeviceOp:
 
 
 @dataclasses.dataclass
+class SpanTime:
+    """One program span's name over a traced segment: how often it opened,
+    the host seconds it spanned, and the seconds its shadows spanned on the
+    device timeline (0 where it launched nothing)."""
+
+    calls: int = 0
+    host_s: float = 0.0
+    device_s: float = 0.0
+
+
+@dataclasses.dataclass
 class Trace:
-    """One traced segment of ``blocks`` forwards."""
+    """One traced segment of ``blocks`` forwards (or decode steps)."""
 
     blocks: int
     window_s: float
@@ -46,6 +66,8 @@ class Trace:
     busy_s: float
     #: idle gaps: (seconds, host label)
     gaps: list[tuple[float, str]]
+    #: the program's spans by name (:data:`PROGRAM_PREFIX` included)
+    spans: dict[str, SpanTime] = dataclasses.field(default_factory=dict)
 
     def kernel_seconds(self, *names: str) -> tuple[float, int]:
         """Summed seconds and launch count of the device ops whose name holds
@@ -94,9 +116,10 @@ def _label(t: int, cpu: list[tuple[int, int, str]], starts: np.ndarray, ends: np
 
 def _annotation(e) -> bool:
     """A host span's shadow on the device timeline, which is no device work
-    (older profilers do not flag it: the harness's spans are known by name)."""
+    (older profilers do not flag it: the harness's and the program's spans
+    are known by name)."""
     flag = getattr(e, "is_user_annotation", None)
-    return bool(flag and flag()) or e.name().startswith(SPAN_PREFIX)
+    return bool(flag and flag()) or e.name().startswith((SPAN_PREFIX, PROGRAM_PREFIX))
 
 
 def reduce(events, blocks: int) -> Trace:
@@ -105,17 +128,32 @@ def reduce(events, blocks: int) -> Trace:
     from torch.autograd import DeviceType
 
     device, cpu, window = [], [], None
+    host_spans, device_spans = [], []
     for e in events:
         start, dur = int(e.start_ns()), int(e.duration_ns())
+        program = e.name().startswith(PROGRAM_PREFIX)
         if e.device_type() == DeviceType.CUDA:
-            if not _annotation(e):
+            if program:
+                device_spans.append((start, dur, e.name()))
+            elif not _annotation(e):
                 device.append(DeviceOp(e.name(), start, dur))
         elif e.name() == TRACED:
             window = (start, start + dur)
+        elif program:  # kept apart: the idle gaps' labels read no program span
+            host_spans.append((start, dur, e.name()))
         else:
             cpu.append((start, start + dur, e.name()))
     if window is None:
         raise RuntimeError(f"the trace holds no {TRACED!r} span")
+    spans: dict[str, SpanTime] = {}
+    for start, dur, name in host_spans:
+        if window[0] <= start < window[1]:
+            t = spans.setdefault(name, SpanTime())
+            t.calls += 1
+            t.host_s += dur / 1e9
+    for start, dur, name in device_spans:
+        if window[0] <= start < window[1]:
+            spans.setdefault(name, SpanTime()).device_s += dur / 1e9
     device = [op for op in device if window[0] <= op.start_ns < window[1]]
     device.sort(key=lambda op: op.start_ns)
     busy = _union([(op.start_ns, op.start_ns + op.dur_ns) for op in device])
@@ -132,4 +170,5 @@ def reduce(events, blocks: int) -> Trace:
         device_ops=device,
         busy_s=sum(e - s for s, e in busy) / 1e9,
         gaps=gaps,
+        spans=spans,
     )

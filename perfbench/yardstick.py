@@ -116,3 +116,43 @@ def layers(conf: dict, rows: int) -> list[Layer]:
     out.append(_layer("dense0", modes["dense0"], rows, (frames * cin, cnn["hidden"]), "dense"))
     out.append(_layer("dense1", modes["dense1"], rows, (cnn["hidden"], cnn["n_classes"]), "dense"))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeCost:
+    """The least work of one LM decode step of ``slots`` sessions, each at
+    position ``pos`` (it writes position ``pos`` and attends to ``pos + 1``
+    positions), from the weights the configuration serves and the
+    reference's :func:`cost_terms`: every weight byte read once, each slot's
+    keys and values of the positions it attends to read or written once,
+    its recurrent state read and written once, the logits written once in
+    float32; FLOPs twice the parameters a token (the tied table once, as
+    the unembed's product) and the attention's over the positions."""
+
+    slots: int
+    params: int
+    weight_bytes: int
+    vocab: int
+    kv_bytes_per_position: int
+    state_bytes_per_slot: int
+    attn_flops_per_position: int
+
+    def step_bytes(self, pos: int) -> int:
+        per_slot = self.kv_bytes_per_position * (pos + 1) + 2 * self.state_bytes_per_slot
+        return self.weight_bytes + self.slots * (per_slot + 4 * self.vocab)
+
+    def token_flops(self, pos: int) -> int:
+        return 2 * self.params + self.attn_flops_per_position * (pos + 1)
+
+    def step_bound_s(self, pos: int) -> float:
+        """The least time of a step at the HBM and bf16 peaks."""
+        return bound_s(self.step_bytes(pos), self.slots * self.token_flops(pos),
+                       BF16_FLOPS_PER_S)
+
+
+def decode_cost(leaves: dict, terms: dict, slots: int, vocab: int) -> DecodeCost:
+    """A :class:`DecodeCost` from the weights' leaves (path -> tensor, as
+    served: their element counts and sizes) and a reference's cost terms."""
+    return DecodeCost(slots=slots, params=sum(w.numel() for w in leaves.values()),
+                      weight_bytes=sum(w.numel() * w.element_size() for w in leaves.values()),
+                      vocab=vocab, **terms)
