@@ -10,7 +10,13 @@ groups in the port), ``unroll_attn`` (the KV-chunk loop is a Python loop
 either way) and ``sharded_embed_gather`` (a vocab-cut table always takes the
 masked lookup and a whole one the plain gather, whose results are equal).
 ``moe_impl="a2a"`` picks the expert-parallel MoE, which runs collectives
-when sharding rules over several ranks are active."""
+when sharding rules over several ranks are active.
+
+:class:`HybridConfig` adds the fields of the published Granite-4.0-H
+hybrids (NoPE, a set softmax scale, three multipliers, the published
+Mamba2 mixer), which the reference's ``ArchConfig`` lacks;
+every other config reads their defaults from ``ArchConfig``'s class
+attributes, at which the model adds no op."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,6 +40,7 @@ class ArchConfig:
     #   "local"       sliding-window attention block (cfg.window)
     #   "moe"         attention + MoE FFN block
     #   "mamba2"      Mamba2 SSM block
+    #   "mamba2_mlp"  Mamba2 SSM block followed by an MLP (HybridConfig)
     #   "rwkv6"       RWKV6 (time-mix + channel-mix) block
     #   "shared_attn" attention block with weights shared across occurrences
     pattern: tuple[str, ...] = ("attn",)
@@ -80,6 +87,15 @@ class ArchConfig:
     # notes recorded in DESIGN/EXPERIMENTS (applicability, skips)
     notes: str = ""
     source: str = ""
+
+    # :class:`HybridConfig`'s fields at their defaults: class attributes,
+    # not fields, so ``dataclasses.asdict`` stays the reference's
+    nope = False
+    attn_scale = None
+    embed_mult = 1.0
+    residual_mult = 1.0
+    logits_div = 1.0
+    ssm_published = False
 
     def __post_init__(self):
         assert self.n_layers % len(self.pattern) == 0, (
@@ -143,6 +159,21 @@ class ArchConfig:
             "remat": False,
         }
         return self.replace(**shrink)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(ArchConfig):
+    """An ``ArchConfig`` with the fields of the published Granite-4.0-H
+    hybrids (``GraniteMoeHybrid`` in Hugging Face's transformers)."""
+
+    nope: bool = False  # no rotary encoding on q and k
+    attn_scale: Optional[float] = None  # the softmax scale; None: 1 / sqrt(head_dim)
+    embed_mult: float = 1.0  # the embeddings times this
+    residual_mult: float = 1.0  # every residual branch times this
+    logits_div: float = 1.0  # the logits over this
+    # the published Mamba2 mixer: the causal conv (with bias) over [x, B, C],
+    # and the gate before the norm, rms(y * silu(z)); else zamba2's block
+    ssm_published: bool = False
 
 
 # model-parameter counting (feeds MODEL_FLOPS = 6*N*D roofline term)

@@ -20,8 +20,9 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 The program's own instrumentation lives here too: the wrappers' launch
 counters (:func:`count_launch`; a CUDA graph's capture records them with
 :func:`record_launches` and each replay adds them with :func:`add_launches`)
-and the profiler spans (:func:`span`, recorded inside :func:`program_spans`)
-that mark its layers in a ``torch.profiler`` trace.
+and the profiler spans (:func:`span`, recorded inside :func:`program_spans`;
+the LM path's :func:`lm_span`, whenever a profiler records) that mark its
+layers in a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -331,6 +332,16 @@ def span(name: str):
     records; else one shared null context, so that a span costs a flag
     check and no ``record_function`` when nothing reads it."""
     if spans_recording():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def lm_span(name: str):
+    """A profiler span ``repro_torch.<name>`` of the LM path, recorded
+    whenever a profiler records, with no :func:`program_spans` scope (the
+    detector's forward keeps :func:`span`, whose scope also decides whether
+    it replays its CUDA graph); else the shared null context."""
+    if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(SPAN_PREFIX + name)
     return _NO_SPAN
 

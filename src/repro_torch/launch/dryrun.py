@@ -56,7 +56,12 @@ train or prefill cell of an architecture with a time scan (``mamba2``,
 step, ~10^6 ops a layer at 32,768 positions) is traced at one and two
 groups, one and two microbatches (train) and three sequence lengths (two
 for a prefill that does not attend: attention is quadratic in the length,
-and so is a train step's backward of the scans' per-step slices).
+and so is a train step's backward of the scans' per-step slices).  rwkv6's
+scan is that loop; mamba2's multi-token scan is chunked
+(``mamba2._ssd_chunked``), and a cell longer than one of its chunks is
+sampled at whole chunks (one, two and three: :func:`_scan_seq`), where
+its FLOPs are a polynomial of degree 2 in the length as its attention's
+are.
 Each number is the tensor-product Lagrange extrapolation of the sampled
 ones to the cell's depth, microbatch count and length, which is exact for
 whatever is linear in depth and microbatches and polynomial in the length
@@ -404,9 +409,21 @@ def extrapolation_axes(cfg: ArchConfig, shape: ShapeSpec, n_micro: int) -> list[
         # the scans' per-step slices (each writes a zero-filled copy of the
         # whole sequence's tensor)
         degree = 2 if _attends(cfg) or shape.kind == "train" else 1
-        axes.append(("seq_len", tuple(SCAN_SEQ * (i + 1) for i in range(degree + 1)),
+        axes.append(("seq_len", tuple(_scan_seq(cfg, shape) * (i + 1) for i in range(degree + 1)),
                      shape.seq_len))
     return axes
+
+
+def _scan_seq(cfg: ArchConfig, shape: ShapeSpec) -> int:
+    """The step of the sampled lengths: :data:`SCAN_SEQ`, or mamba2's chunk
+    (``mamba2.SSD_CHUNK``) where the cell is longer than one, so that every
+    sample runs the chunked scan in whole chunks as the cell does (its
+    products with the masked decay grow with the square of a chunk's
+    length and with the number of chunks, the recurrence over the chunks
+    with that number squared: in whole chunks, a polynomial of degree 2 in
+    the length)."""
+    mamba = any(k in ("mamba2", "mamba2_shared") for k in cfg.pattern)
+    return M2.SSD_CHUNK if mamba and shape.seq_len > M2.SSD_CHUNK else SCAN_SEQ
 
 
 def _weights(axes, grid) -> list[float]:

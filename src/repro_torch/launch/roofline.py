@@ -18,19 +18,19 @@ The time scans' FLOPs.  The reference adds an analytic term for the
 SSM/RWKV scans, which XLA's ``cost_analysis`` cannot see inside a while
 loop: 4·B·H·N² a step and layer for rwkv6 (decay, ``k^T v``, ``r S``, the
 bonus) and 6·B·H·N·P for mamba2 (decay, ``dt B x``, ``C^T S``), three
-times that for a train step.  The port's scans are Python loops that
-``FlopCounterMode`` follows, but it counts only their contractions
-(rwkv6's ``r S``, mamba2's ``C^T S``: 2·B·H·N² and 2·B·H·N·P a step); the
-outer products ``k^T v`` and ``B x`` are broadcast multiplies, elementwise
-like the decay.  So the correction is ported as what the counter misses,
-the reference's term less the counted part (2·B·H·N² and 4·B·H·N·P a
-step), per device: B the rows a device holds and H the heads it holds (a
-scan's heads over their cut under the record's mesh and rules: rwkv6's
-from ``wr``'s spec where its time mix is cut on whole heads, mamba2's from
-``a_log``'s; the reference divides its global term by every chip), and
-applied to every mamba2 block, zamba2's shared-attention slot's too (the
-reference's loop skips ``mamba2_shared``).  Decode steps get none, as in
-the reference.
+times that for a train step.  The port's rwkv6 scan is a Python loop that
+``FlopCounterMode`` follows, but it counts only its contraction ``r S``
+(2·B·H·N² a step); the outer product ``k^T v`` is a broadcast multiply,
+elementwise like the decay.  So the correction is ported as what the
+counter misses, the reference's term less the counted part (2·B·H·N² a
+step), per device: B the rows a device holds and H the time-mix heads it
+holds (from ``wr``'s spec under the record's mesh and rules, where the
+time mix is cut on whole heads; the reference divides its global term by
+every chip).  A mamba2 block's multi-token scan is the chunked SSD form
+(``mamba2._ssd_chunked``), whose every product with the state or the
+tokens is a contraction the counter counts (only the decays' elementwise
+ops are not, as no elementwise op is anywhere in the dry run), so mamba2
+blocks get no correction.  Decode steps get none, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline [--out DIR] [--mesh pod_16x16]
     PYTHONPATH=src python -m repro_torch.launch.roofline --markdown   # the PERF.md table
@@ -46,7 +46,6 @@ from repro_torch.configs import get_config
 from repro_torch.distributed.sharding import LONG_CONTEXT_OVERRIDES, ShardingRules, use_rules
 from repro_torch.launch.hw import BF16_FLOPS_PER_S, HBM_BYTES_PER_S, NVLINK_BYTES_PER_S
 from repro_torch.launch.specs import SHAPES
-from repro_torch.models import mamba2 as M2
 from repro_torch.models import rwkv6 as R6
 
 #: the production meshes' axes (``launch/mesh.make_production_mesh``)
@@ -83,25 +82,19 @@ def mesh_rules(mesh: str | None, shape_name: str) -> ShardingRules | None:
 
 def recurrence_flops_correction(arch: str, shape_name: str, rows: int,
                                 mesh: str | None = None) -> float:
-    """The time scans' FLOPs a device that ``FlopCounterMode`` does not
-    count (module docstring), for ``rows`` sequences a device and the heads
-    a device holds on ``mesh`` (a name of :data:`MESHES`; ``None``: every
-    head)."""
+    """The rwkv6 time scans' FLOPs a device that ``FlopCounterMode`` does
+    not count (module docstring), for ``rows`` sequences a device and the
+    heads a device holds on ``mesh`` (a name of :data:`MESHES`; ``None``:
+    every head); mamba2's chunked scan needs none."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    if shape.kind == "decode":
+    if shape.kind == "decode" or "rwkv6" not in cfg.pattern:
         return 0.0
     with use_rules(mesh_rules(mesh, shape_name)):
-        tm, ssm = R6.rwkv6_cuts(cfg)["tm"], M2.head_cut(cfg)
-    per_step = 0.0
-    for kind in cfg.pattern:
-        if kind == "rwkv6":
-            n = cfg.rwkv_head_dim
-            heads = cfg.d_model // n // (tm.size if tm else 1)
-            per_step += 2.0 * rows * heads * n * n
-        elif kind in ("mamba2", "mamba2_shared"):
-            heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // (ssm.size if ssm else 1)
-            per_step += 4.0 * rows * heads * cfg.ssm_state * cfg.ssm_head_dim
+        tm = R6.rwkv6_cuts(cfg)["tm"]
+    n = cfg.rwkv_head_dim
+    heads = cfg.d_model // n // (tm.size if tm else 1)
+    per_step = 2.0 * rows * heads * n * n * cfg.pattern.count("rwkv6")
     total = per_step * shape.seq_len * cfg.n_groups
     return 3.0 * total if shape.kind == "train" else total
 

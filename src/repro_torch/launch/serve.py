@@ -21,7 +21,10 @@ before anything is built.  The reference's host mesh and sharding rules
 are identities on one device and are not built here.  The weights are
 seeded random (``init_params(0, cfg)``, a ``torch.Generator``, so not the
 reference's values).  Each decode step reads every slot's token back to
-the host (``int(cur[i, 0])``), as the reference does.
+the host (``int(cur[i, 0])``), as the reference does.  On a CUDA device, a
+config whose decode step reads its position only in device ops
+(``transformer.decode_graphable``: granite-4.0-h-micro's) replays that step
+as CUDA graphs (:class:`DecodeGraphs`); every other decodes eagerly.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import backend
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.batching import DispatchCore, SlotPolicy
 
@@ -45,6 +50,98 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new: int = 16
     out: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class _StepGraphs:
+    """One batch size's two captured decode steps: ``graphs[i]`` reads the
+    caches in ``bufs[i]`` and writes the new ones into ``bufs[1 - i]`` and
+    its logits into ``logits[i]``, from the token in ``tok`` and the
+    position in ``pos``; ``launches`` is the launch counts of one replay
+    (a :func:`~repro_torch.kernels.backend.record_launches` record)."""
+
+    graphs: list
+    bufs: list
+    tok: torch.Tensor
+    pos: torch.Tensor
+    logits: list
+    launches: dict
+    #: the buffer the last step wrote
+    last: int = 1
+
+    def step(self, tok: torch.Tensor, caches, pos: int):
+        if caches is self.bufs[0] or caches is self.bufs[1]:
+            i = 0 if caches is self.bufs[0] else 1
+        else:  # the caller's own caches, into the buffer the last step read
+            i = 1 - self.last
+            T.copy_into(self.bufs[i], caches)
+        self.tok.copy_(tok)
+        self.pos.fill_(pos)
+        self.graphs[i].replay()
+        backend.add_launches(self.launches)
+        self.last = 1 - i
+        return self.logits[i], self.bufs[1 - i]
+
+
+class DecodeGraphs:
+    """:func:`~repro_torch.models.transformer.decode_step` replayed as CUDA
+    graphs, for a config and weights that
+    :func:`~repro_torch.models.transformer.decode_graphable` admits: the
+    host issues one replay a step in place of a launch an op.
+
+    Per batch shape, the first call runs eagerly (it makes the constants
+    kept a device).  The second, unless a profiler records, runs the step
+    once eagerly with its position on the device and captures two graphs
+    over two cache buffers (:class:`_StepGraphs`); it and later calls
+    replay.  A call handed the caches the last step returned replays the
+    graph that reads them, with no copy; other caches (a prefill's) are
+    first copied into the buffer the last step read.  So the caches a step
+    returns hold until the second call after it, or the next call handed
+    other caches; its logits until the second call after it.  Calls with
+    other weights than the server's run eagerly."""
+
+    def __init__(self, cfg, params, max_seq: int):
+        self.cfg, self.params, self.max_seq = cfg, params, max_seq
+        self.seen: set = set()
+        self.steps: dict[tuple, _StepGraphs] = {}
+
+    def __call__(self, params, tok: torch.Tensor, caches, pos: int):
+        key = tuple(tok.shape)
+        entry = self.steps.get(key)
+        if entry is None:
+            if (params is not self.params or key not in self.seen
+                    or torch.autograd._profiler_enabled()):
+                self.seen.add(key)
+                return T.decode_step(params, tok, caches, pos, self.cfg, self.max_seq)
+            entry = self.steps[key] = self._capture(tok, caches, pos)
+        elif params is not self.params:
+            return T.decode_step(params, tok, caches, pos, self.cfg, self.max_seq)
+        return entry.step(tok, caches, pos)
+
+    def _capture(self, tok: torch.Tensor, caches, pos: int) -> _StepGraphs:
+        dev = tok.device
+        bufs = [L.tree_map(lambda t: torch.empty_like(t, memory_format=torch.contiguous_format),
+                           caches) for _ in range(2)]
+        stok = tok.clone()
+        spos = torch.full((), int(pos), dtype=torch.int64, device=dev)
+        T.copy_into(bufs[0], caches)
+
+        def run(i):
+            return T.decode_step(self.params, stok, bufs[i], spos, self.cfg, self.max_seq,
+                                 out=bufs[1 - i])[0]
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run(0)  # the allocations and library handles a capture must find made
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graphs, logits = [], []
+        for i in (0, 1):
+            graph = torch.cuda.CUDAGraph()
+            with backend.record_launches() as launches, torch.cuda.graph(graph):
+                logits.append(run(i))
+            graphs.append(graph)
+        return _StepGraphs(graphs, bufs, stok, spos, logits, launches)
 
 
 class BatchedServer:
@@ -75,7 +172,10 @@ class BatchedServer:
         self.slots = batch_slots
         self.max_seq = max_seq
         self._prefill = lambda p, b: T.forward_with_cache(p, b, cfg, max_seq)
-        self._decode = lambda p, tok, c, pos: T.decode_step(p, tok, c, pos, cfg, max_seq)
+        if self.device.type == "cuda" and T.decode_graphable(cfg, self.params):
+            self._decode = DecodeGraphs(cfg, self.params, max_seq)
+        else:
+            self._decode = lambda p, tok, c, pos: T.decode_step(p, tok, c, pos, cfg, max_seq)
         self._greedy = True  # per-serve() decode mode, read by _submit
         # Synchronous: prefill+decode completes before the next block is
         # packed, so no harvest stage and a single in-flight slot.

@@ -11,9 +11,12 @@ Conventions
   (int8 + scale) per the precision policy.  It is weight-only: the int8
   payload is dequantised into the activation dtype and the product is a
   plain ``torch.einsum``, as the reference leaves it to ``jnp.einsum``.
-* Attention supports GQA/MQA, RoPE, causal + sliding-window masks, dense or
-  KV-chunked (online-softmax) computation, prefill cache emission, and
-  single-token decode against linear or ring (windowed) caches.
+* Attention supports GQA/MQA, RoPE (or none, ``cfg.nope``), causal +
+  sliding-window masks, dense or KV-chunked (online-softmax) computation,
+  prefill cache emission, and single-token decode against linear or ring
+  (windowed) caches.  ``cfg.attn_scale`` sets the softmax scale and
+  ``cfg.residual_mult`` scales each residual branch (:func:`residual`),
+  each a constant made once a device; at their defaults neither adds an op.
 
 Where the reference places a dtype cast, the port casts in the same place
 (RoPE's cos/sin to ``x.dtype`` before the multiply, attention weights to
@@ -64,6 +67,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.f32_math import const_f32
 from repro_torch.core.quantization import QTensor
 from repro_torch.distributed import sharding as SH
 
@@ -286,14 +290,31 @@ def _qkv(p, x, cfg: ArchConfig, positions, wk, wv):
     q = qeinsum("bsd,dhk->bshk", x, p["wq"])
     k = qeinsum("bsd,dhk->bshk", x, wk)
     v = qeinsum("bsd,dhk->bshk", x, wv)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cfg.nope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _scale_const(dh: int, like: torch.Tensor) -> torch.Tensor:
     """``1 / sqrt(dh)`` as an fp32 tensor on ``like``'s device."""
     return torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32, device=like.device)
+
+
+def _attn_scale(cfg: ArchConfig, dh: int, like: torch.Tensor) -> torch.Tensor:
+    """The softmax scale: ``cfg.attn_scale`` where set (a constant made
+    once a device), else :func:`_scale_const`."""
+    if cfg.attn_scale is None:
+        return _scale_const(dh, like)
+    return const_f32(cfg.attn_scale, like)
+
+
+def residual(x: torch.Tensor, y: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``x + y``, the branch ``y`` times ``cfg.residual_mult`` where that is
+    not 1 (a constant made once a device)."""
+    if cfg.residual_mult == 1.0:
+        return x + y
+    return x + y * const_f32(cfg.residual_mult, y)
 
 
 def _dense_attention(q, k, v, cfg: ArchConfig, window, causal: bool):
@@ -303,7 +324,7 @@ def _dense_attention(q, k, v, cfg: ArchConfig, window, causal: bool):
     g = h // kvh
     qg = q.reshape(b, s, kvh, g, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
-    scores = scores * _scale_const(dh, scores)
+    scores = scores * _attn_scale(cfg, dh, scores)
     i = torch.arange(s, device=q.device)[:, None]
     j = torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
@@ -329,7 +350,7 @@ def _chunked_attention(q, k, v, cfg: ArchConfig, window, causal: bool):
     kp = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(b, n_chunks, c, kvh, dh)
     vp = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(b, n_chunks, c, kvh, dh)
     qg = q.reshape(b, s, kvh, g, dh)
-    scale = _scale_const(dh, q)
+    scale = _attn_scale(cfg, dh, q)
     i_pos = torch.arange(s, device=q.device)
     m = torch.full((b, kvh, g, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, g, s, 1), dtype=torch.float32, device=q.device)
@@ -396,7 +417,7 @@ def attn_fwd(
         if seq is not None:  # this rank's slots of the whole cache
             cache = {n: t[:, seq.part(L)].clone(memory_format=torch.contiguous_format)
                      for n, t in cache.items()}
-    return x + y, cache
+    return residual(x, y, cfg), cache
 
 
 def _pad_to(t: torch.Tensor, L: int) -> torch.Tensor:
@@ -417,9 +438,9 @@ def cache_slot(pos: int, spec: AttnCacheSpec) -> int:
     return min(max(slot, 0), spec.length - 1)
 
 
-def _valid_slots(t: torch.Tensor, pos: int, spec: AttnCacheSpec, window) -> torch.Tensor:
+def _valid_slots(t: torch.Tensor, pos, spec: AttnCacheSpec, window) -> torch.Tensor:
     """Which of the cache slots ``t`` (global indices) a decode step at
-    ``pos`` attends to."""
+    ``pos`` (an int or a 0-d tensor) attends to."""
     if spec.ring:
         # absolute position stored in slot t: largest value <= pos congruent t mod L
         abs_pos = pos - torch.remainder(pos - t, spec.length)
@@ -433,20 +454,24 @@ def _valid_slots(t: torch.Tensor, pos: int, spec: AttnCacheSpec, window) -> torc
     return valid
 
 
-def _decode_scores(q, k, valid):
+def _decode_scores(q, k, valid, scale=None):
     """fp32 scores of one token's query heads (B, 1, H, Dh) over the cache
     slots of ``k`` (B, T, Hkv, Dh), invalid slots at :data:`NEG_INF`:
-    (B, Hkv, H / Hkv, T)."""
+    (B, Hkv, H / Hkv, T).  Over ``sqrt(Dh)``, or times ``scale`` where
+    given (``cfg.attn_scale``'s constant)."""
     b, _, hq, dh = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, kvh, hq // kvh, dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k).to(torch.float32)
-    scores = torch.div(scores, torch.tensor(math.sqrt(dh), dtype=torch.float32,
-                                            device=q.device))
+    if scale is None:
+        scores = torch.div(scores, torch.tensor(math.sqrt(dh), dtype=torch.float32,
+                                                device=q.device))
+    else:
+        scores = scores * scale
     return torch.where(valid[None, None, None, :], scores, NEG_INF)
 
 
-def _ring_decode(q, ck, cv, valid, heads, kvc, seq: SH.Cut):
+def _ring_decode(q, ck, cv, valid, heads, kvc, seq: SH.Cut, scale=None):
     """Ring-decode attention: this rank's cache slots score every query
     head it needs (all of them, gathered over the heads' group, where the
     heads are cut over whole kv heads), give fp32 partial statistics (max,
@@ -461,7 +486,7 @@ def _ring_decode(q, ck, cv, valid, heads, kvc, seq: SH.Cut):
     if gathered:
         q = SH.gather_dim(q, heads, 2)
     b, _, hq, dh = q.shape
-    scores = _decode_scores(q, ck, valid)
+    scores = _decode_scores(q, ck, valid, scale)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     acc = torch.einsum("bkgt,btkd->bkgd", p.to(cv.dtype), cv).to(torch.float32)
@@ -482,7 +507,7 @@ def attn_decode(
     p,
     x: torch.Tensor,  # (B, 1, D)
     cache: dict,  # {"k": (B, L, Hkv, Dh), "v": ...}: this rank's slots
-    pos: int,  # absolute position of the new token
+    pos,  # absolute position of the new token: an int, or a 0-d int64 tensor
     cfg: ArchConfig,
     *,
     window: Optional[int] = None,
@@ -492,32 +517,44 @@ def attn_decode(
     the cache passed in is left as it was.  Where the cache's sequence is
     cut (:func:`cache_seq_cut`), the rank holding the global slot writes
     the new token and the ranks combine their slots' attention
-    (:func:`_ring_decode`)."""
+    (:func:`_ring_decode`).  A ``pos`` on the device (a step that a CUDA
+    graph replays at any position) is read only by device ops; it takes a
+    whole linear cache."""
     b = x.shape[0]
-    pos = int(pos)
+    on_device = isinstance(pos, torch.Tensor)
     heads, kvc = attn_cuts(cfg)
     L = spec.length
     seq = cache_seq_cut(cfg, L)
+    if on_device and (seq is not None or spec.ring):
+        raise NotImplementedError("a position on the device takes a whole linear cache")
+    pos = pos if on_device else int(pos)
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     h, wk, wv = _tp_in(p, h, heads, kvc)
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    positions = (pos.reshape(1, 1) if on_device
+                 else torch.full((1, 1), pos, dtype=torch.int32, device=x.device))
     q, k, v = _qkv(p, h, cfg, positions, wk, wv)  # (B, 1, H/Hkv, Dh)
-    slot = cache_slot(pos, spec)
     first, n = (0, L) if seq is None else (seq.part(L).start, L // seq.size)
     ck, cv = cache["k"].clone(), cache["v"].clone()
-    if first <= slot < first + n:  # this rank holds the slot
-        ck[:, slot - first] = k[:, 0].to(ck.dtype)
-        cv[:, slot - first] = v[:, 0].to(cv.dtype)
+    if on_device:  # cache_slot's slot, on the device
+        at = pos.clamp(0, L - 1).reshape(1)
+        ck.index_copy_(1, at, k.to(ck.dtype))
+        cv.index_copy_(1, at, v.to(cv.dtype))
+    else:
+        slot = cache_slot(pos, spec)
+        if first <= slot < first + n:  # this rank holds the slot
+            ck[:, slot - first] = k[:, 0].to(ck.dtype)
+            cv[:, slot - first] = v[:, 0].to(cv.dtype)
     valid = _valid_slots(torch.arange(first, first + n, device=x.device), pos, spec, window)
+    scale = None if cfg.attn_scale is None else const_f32(cfg.attn_scale, q)
     if seq is None:
         kq, vq = _kv_for_heads(ck, cv, cfg, heads, kvc)
         hq, kvh, dh = q.shape[2], kq.shape[2], q.shape[3]
-        w = torch.softmax(_decode_scores(q, kq, valid), dim=-1).to(cv.dtype)
+        w = torch.softmax(_decode_scores(q, kq, valid, scale), dim=-1).to(cv.dtype)
         out = torch.einsum("bkgt,btkd->bkgd", w, vq).reshape(b, 1, hq, dh)
     else:
-        out = _ring_decode(q, ck, cv, valid, heads, kvc, seq)
+        out = _ring_decode(q, ck, cv, valid, heads, kvc, seq, scale)
     y = SH.reduce_from(qeinsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), SH.group_of(heads))
-    return x + y, {"k": ck, "v": cv}
+    return residual(x, y, cfg), {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------
@@ -565,4 +602,4 @@ def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         ff = gelu(qeinsum("bsd,df->bsf", h, p["wi"]))
         y = qeinsum("bsf,fd->bsd", ff, p["wo"])
-    return x + SH.reduce_from(y, grp)
+    return residual(x, SH.reduce_from(y, grp), cfg)

@@ -8,6 +8,11 @@ reference's ``lax.scan`` takes them; the port runs one Python loop over the
 groups, slicing group ``gi`` of every leaf (a ``QTensor``'s payload and its
 scale alike), so ``stack_mode="scan"`` and ``"unroll"`` are the same loop.
 
+The published hybrids' fields (``configs.base.HybridConfig``): the
+embeddings times ``cfg.embed_mult`` and the logits over
+``cfg.logits_div``, each a constant made once a device and no op at its
+default; ``"mamba2_mlp"`` is a mamba2 mixer followed by an MLP.
+
 Entry points:
   init_params(seed, cfg, device="cuda")         seeded params on the device
   forward(params, batch, cfg)                   full-seq logits (encoder too)
@@ -50,10 +55,11 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.f32_math import const_f32
 from repro_torch.core.quantization import QTensor
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.embedding import embedding_gather
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import lm_span, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -75,6 +81,8 @@ def _block_specs(kind: str, cfg: ArchConfig) -> dict:
         return {}  # weights live in params["shared"]
     if kind in ("mamba2", "mamba2_shared"):
         return {"mamba": M2.mamba2_specs(cfg)}
+    if kind == "mamba2_mlp":
+        return {"mamba": M2.mamba2_specs(cfg), "mlp": L.mlp_specs(cfg)}
     if kind == "rwkv6":
         return {"rwkv": R6.rwkv6_specs(cfg)}
     raise ValueError(f"unknown block kind {kind!r}")
@@ -222,6 +230,8 @@ def embed_fwd(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
         tok = embedding_gather(table, batch["tokens"], SH.dim_cut(t.logical, t.shape, 0))
         if cfg.scale_embed:
             tok = tok * torch.tensor(np.sqrt(cfg.d_model), dtype=tok.dtype, device=tok.device)
+        if cfg.embed_mult != 1.0:
+            tok = tok * const_f32(cfg.embed_mult, tok)
         h = tok
         if cfg.frontend == "vision_patches" and "patches" in batch:  # prefill/train only
             f = params["frontend"]
@@ -247,7 +257,10 @@ def unembed_local(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         logits = L.qeinsum("bsd,vd->bsv", h, params["embed"]["tok"])
     else:
         logits = L.qeinsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits.to(torch.float32)
+    logits = logits.to(torch.float32)
+    if cfg.logits_div != 1.0:
+        logits = logits / const_f32(cfg.logits_div, logits)
+    return logits
 
 
 def unembed(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -264,25 +277,34 @@ def _window_for(kind: str, cfg: ArchConfig) -> Optional[int]:
     return cfg.window if kind == "local" else None
 
 
+def _mlp(p, x, cfg: ArchConfig):
+    with lm_span("mlp"):
+        return L.mlp_fwd(p, x, cfg)
+
+
 def block_fwd(kind, p, x, cfg: ArchConfig, shared, cache_len: Optional[int] = None):
     """Full-seq block.  Returns (x, cache_or_none); cache emitted only when
-    ``cache_len`` is given (prefill)."""
+    ``cache_len`` is given (prefill).  Spans ``attn`` and ``mlp`` mark the
+    attention and the MLP (``backend.lm_span``); mamba2 marks its own."""
     window = _window_for(kind, cfg)
     if kind in ("attn", "local", "moe", "shared_attn"):
         ap = shared["attn"] if kind == "shared_attn" else p["attn"]
         emit = None
         if cache_len is not None:
             emit = L.attn_cache_shape(cfg, x.shape[0], cache_len, window)
-        x, cache = L.attn_fwd(ap, x, cfg, window=window, emit_cache=emit)
+        with lm_span("attn"):
+            x, cache = L.attn_fwd(ap, x, cfg, window=window, emit_cache=emit)
         if kind == "moe":
             x = MOE.moe_block(p["moe"], x, cfg)
         elif kind == "shared_attn":
-            x = L.mlp_fwd(shared["mlp"], x, cfg)
+            x = _mlp(shared["mlp"], x, cfg)
         else:
-            x = L.mlp_fwd(p["mlp"], x, cfg)
+            x = _mlp(p["mlp"], x, cfg)
         return x, cache
-    if kind == "mamba2":
+    if kind in ("mamba2", "mamba2_mlp"):
         x, st = M2.mamba2_fwd(p["mamba"], x, cfg, emit_state=cache_len is not None)
+        if kind == "mamba2_mlp":
+            x = _mlp(p["mlp"], x, cfg)
         return x, _state_rows(st)
     if kind == "mamba2_shared":
         # zamba2: a mamba block followed by the *shared* attention+MLP block
@@ -291,8 +313,9 @@ def block_fwd(kind, p, x, cfg: ArchConfig, shared, cache_len: Optional[int] = No
         emit = None
         if cache_len is not None:
             emit = L.attn_cache_shape(cfg, x.shape[0], cache_len, None)
-        x, kv = L.attn_fwd(shared["attn"], x, cfg, window=None, emit_cache=emit)
-        x = L.mlp_fwd(shared["mlp"], x, cfg)
+        with lm_span("attn"):
+            x, kv = L.attn_fwd(shared["attn"], x, cfg, window=None, emit_cache=emit)
+        x = _mlp(shared["mlp"], x, cfg)
         if cache_len is not None:
             return x, {"mamba": st, "attn": kv}
         return x, None
@@ -313,21 +336,27 @@ def block_decode(kind, p, x, cache, pos: int, cfg: ArchConfig, shared, max_seq: 
     if kind in ("attn", "local", "moe", "shared_attn"):
         ap = shared["attn"] if kind == "shared_attn" else p["attn"]
         spec = L.attn_cache_shape(cfg, x.shape[0], max_seq, window)
-        x, cache = L.attn_decode(ap, x, cache, pos, cfg, window=window, spec=spec)
+        with lm_span("attn"):
+            x, cache = L.attn_decode(ap, x, cache, pos, cfg, window=window, spec=spec)
         if kind == "moe":
             x = MOE.moe_block(p["moe"], x, cfg)
         elif kind == "shared_attn":
-            x = L.mlp_fwd(shared["mlp"], x, cfg)
+            x = _mlp(shared["mlp"], x, cfg)
         else:
-            x = L.mlp_fwd(p["mlp"], x, cfg)
+            x = _mlp(p["mlp"], x, cfg)
         return x, cache
     if kind == "mamba2":
         return M2.mamba2_decode(p["mamba"], x, cache, cfg)
+    if kind == "mamba2_mlp":
+        x, st = M2.mamba2_decode(p["mamba"], x, cache, cfg)
+        return _mlp(p["mlp"], x, cfg), st
     if kind == "mamba2_shared":
         x, st = M2.mamba2_decode(p["mamba"], x, cache["mamba"], cfg)
         spec = L.attn_cache_shape(cfg, x.shape[0], max_seq, None)
-        x, kv = L.attn_decode(shared["attn"], x, cache["attn"], pos, cfg, window=None, spec=spec)
-        x = L.mlp_fwd(shared["mlp"], x, cfg)
+        with lm_span("attn"):
+            x, kv = L.attn_decode(shared["attn"], x, cache["attn"], pos, cfg, window=None,
+                                  spec=spec)
+        x = _mlp(shared["mlp"], x, cfg)
         return x, {"mamba": st, "attn": kv}
     if kind == "rwkv6":
         return R6.rwkv6_decode(p["rwkv"], x, cache, cfg)
@@ -395,18 +424,33 @@ def run_stack(params, x, cfg: ArchConfig, cache_len: Optional[int] = None):
     return x, (_stack(caches_list) if cache_len is not None else None)
 
 
-def run_stack_decode(params, x, caches, pos: int, cfg: ArchConfig, max_seq: int):
+def copy_into(dst: Any, src: Any) -> None:
+    """Copy a tree of tensors into a tree of the same structure."""
+    if isinstance(dst, Mapping):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+def run_stack_decode(params, x, caches, pos, cfg: ArchConfig, max_seq: int, out=None):
+    """``out``, where given, is a cache tree that each layer's new caches are
+    copied into as the layer ends (in place of the stack at the end)."""
     shared = params.get("shared")
     ncs = []
     for gi in range(cfg.n_groups):
         gp, gc = _group(params["groups"], gi), _group(caches, gi)
+        go = None if out is None else _group(out, gi)
         new_caches = {}
         for i, kind in enumerate(cfg.pattern):
             x, c = block_decode(kind, gp[f"pos{i}"], x, gc[f"pos{i}"], pos, cfg, shared,
                                 max_seq)
-            new_caches[f"pos{i}"] = c
+            if go is None:
+                new_caches[f"pos{i}"] = c
+            else:
+                copy_into(go[f"pos{i}"], c)
         ncs.append(new_caches)
-    return x, _stack(ncs)
+    return x, (_stack(ncs) if out is None else out)
 
 
 # ---------------------------------------------------------------------------
@@ -435,13 +479,32 @@ def forward_with_cache(params, batch: dict, cfg: ArchConfig, max_seq: int):
     return unembed(params, h, cfg), caches
 
 
-def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ArchConfig, max_seq: int):
-    """One serve step: token (B, 1) int, absolute position ``pos``; returns
-    (logits (B, 1, V), new caches).  The caches passed in are not changed."""
+def decode_step(params, token: torch.Tensor, caches, pos, cfg: ArchConfig, max_seq: int,
+                out=None):
+    """One serve step: token (B, 1) int, absolute position ``pos`` (an int,
+    or a 0-d int64 tensor on the device: see :func:`decode_graphable`);
+    returns (logits (B, 1, V), new caches).  The caches passed in are not
+    changed.  ``out``, where given, is a cache tree of the caches' shapes
+    that the new caches are written into and returned as."""
     h = embed_fwd(params, {"tokens": token}, cfg)
-    h, new_caches = run_stack_decode(params, h, caches, int(pos), cfg, max_seq)
+    pos = pos if isinstance(pos, torch.Tensor) else int(pos)
+    h, new_caches = run_stack_decode(params, h, caches, pos, cfg, max_seq, out)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return unembed(params, h, cfg), new_caches
+
+
+def decode_graphable(cfg: ArchConfig, params) -> bool:
+    """Whether :func:`decode_step` can take its position as a tensor on the
+    device, and so be captured once into a CUDA graph that replays at any
+    position: a step that reads the position only in device ops and makes
+    no constant on the host.  Attention with no rotation (RoPE's
+    frequencies are made on the host each call) over whole linear caches,
+    Mamba2 mixers, token embeddings not scaled by ``sqrt(d)`` (a host-made
+    constant), plain weights (no int8 ``QTensor``) and no sharding rules."""
+    return (cfg.nope and not cfg.scale_embed and cfg.frontend is None
+            and set(cfg.pattern) <= {"attn", "mamba2", "mamba2_mlp"}
+            and SH.active_rules() is None
+            and not any(isinstance(t, QTensor) for t in L.tree_leaves(params)))
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
@@ -467,7 +530,7 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
         if kind in ("attn", "local", "moe", "shared_attn"):
             shp = kv_shape(window)
             group[f"pos{i}"] = {"k": (shp, act), "v": (shp, act)}
-        elif kind == "mamba2":
+        elif kind in ("mamba2", "mamba2_mlp"):
             group[f"pos{i}"] = M2.mamba2_state_shapes(cfg, batch)
         elif kind == "mamba2_shared":
             shp = kv_shape(None)
@@ -485,12 +548,12 @@ def cache_logical_axes(cfg: ArchConfig, seq_axis: str = "kv_seq"):
     ``"kv_seq_model"`` when the kv heads cannot shard over the model axis
     (the launcher decides by divisibility)."""
     kv = ("layers", "decode_batch", seq_axis, "kv_heads", "head_dim")
-    mamba = M2.STATE_AXES
+    mamba = M2.state_axes(cfg)
     group = {}
     for i, kind in enumerate(cfg.pattern):
         if kind in ("attn", "local", "moe", "shared_attn"):
             group[f"pos{i}"] = {"k": kv, "v": kv}
-        elif kind == "mamba2":
+        elif kind in ("mamba2", "mamba2_mlp"):
             group[f"pos{i}"] = dict(mamba)
         elif kind == "mamba2_shared":
             group[f"pos{i}"] = {"mamba": dict(mamba), "attn": {"k": kv, "v": kv}}

@@ -65,11 +65,42 @@ def test_scan_extrapolation_equals_a_full_trace(monkeypatch, arch, kind):
     assert got["memory"]["peak_bytes"] == pytest.approx(want["memory"]["peak_bytes"], rel=0.05)
 
 
+def test_chunked_scan_extrapolation_equals_a_full_trace(monkeypatch):
+    """A mamba2 cell longer than one chunk of the chunked scan is sampled at
+    one, two and three whole chunks: zamba2's smoke prefill of 16 positions
+    in chunks of 4, from 4, 8 and 12 positions (not :data:`SCAN_SEQ`'s 2, 4
+    and 6), equals the full trace in FLOPs and collectives, and nearly in
+    bytes (0.2 % under it: the module docstring's "bytes nearly")."""
+    from repro_torch.distributed.sharding import HostMesh, ShardingRules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models import mamba2 as M2
+
+    monkeypatch.setattr(D, "SCAN_SEQ", 2)
+    monkeypatch.setattr(M2, "SSD_CHUNK", 4)
+    cfg = smoke("zamba2-7b")
+    shape = ShapeSpec("t", 16, 4, "prefill")
+    rules = ShardingRules(HostMesh(("data", "model")))
+    axes = D.extrapolation_axes(cfg, shape, 1)
+    assert axes[-1] == ("seq_len", (4, 8, 12), 16)
+    got = D._extrapolated(cfg, shape, rules, 1, axes, quantize=False, device="cpu")
+    want = D.trace_cell(cfg, shape, rules, 1, device="cpu")
+    assert got["flops_per_device"] == pytest.approx(want["flops_per_device"], rel=1e-9)
+    assert got["bytes_per_device"] == pytest.approx(want["bytes_per_device"], rel=0.005)
+    assert got["collectives"]["counts"] == want["collectives"]["counts"]
+    short = ShapeSpec("t", 4, 4, "prefill")  # one chunk: SCAN_SEQ's steps
+    assert D.extrapolation_axes(cfg, short, 1)[-1] == ("seq_len", (2, 4, 6), 4)
+
+
 def test_scan_flops_counted_and_the_correction_for_the_rest():
-    """``FlopCounterMode`` counts the scans' contractions (rwkv6's ``r S``,
-    mamba2's ``C^T S``) and not their outer products and decay; the
-    roofline's correction adds the rest, so that both together are the
-    reference's analytic term (4·B·H·N² and 6·B·H·N·P a step and layer)."""
+    """``FlopCounterMode`` counts rwkv6's scan's contraction (``r S``) and
+    not its outer product and decay; the roofline's correction adds the
+    rest, so that both together are the reference's analytic term
+    (4·B·H·N² a step and layer).  mamba2's multi-token scan is chunked:
+    the counter counts each of its contractions (the chunks' ``C B``, their
+    masked products with the tokens, the chunks' states, the recurrence
+    over the chunks, the outputs from the entering states), so mamba2
+    blocks get no correction."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
@@ -83,13 +114,16 @@ def test_scan_flops_counted_and_the_correction_for_the_rest():
     with FlopCounterMode(display=False) as fc:
         R6._wkv_scan(r, k, v, w, torch.rand(h, n), torch.zeros(b, h, n, n))
     assert fc.get_total_flops() == t * 2 * b * h * n * n
-    cfg = get_config("zamba2-7b").smoke()
+    t, chunk = 12, 4
+    c = t // chunk
     x = torch.rand(b, t, h, p)
     bc = [torch.rand(b, t, n) for _ in range(2)]
     with FlopCounterMode(display=False) as fc:
-        M2._ssm_scan((x, *bc, torch.rand(b, t, h), torch.rand(b, t, h), torch.rand(h)), cfg,
-                     torch.zeros(b, h, n, p))
-    assert fc.get_total_flops() == t * 2 * b * h * n * p
+        M2._ssd_chunked(x, *bc, torch.rand(b, t, h), -torch.rand(b, t, h), torch.rand(h),
+                        torch.zeros(b, h, n, p), chunk)
+    assert fc.get_total_flops() == 2 * b * (c * chunk * chunk * n + h * c * chunk * chunk * p
+                                            + 2 * c * chunk * n * h * p
+                                            + h * (c + 1) ** 2 * n * p)
 
     shape = SHAPES["prefill_32k"]
     rw = get_config("rwkv6-7b")
@@ -101,6 +135,7 @@ def test_scan_flops_counted_and_the_correction_for_the_rest():
         2.0 * 2 * hh * nn * nn * 4096 * rw.n_groups)
     assert roofline.recurrence_flops_correction("rwkv6-7b", "decode_32k", 8) == 0.0
     assert roofline.recurrence_flops_correction("gemma-2b", "train_4k", 16) == 0.0
+    assert roofline.recurrence_flops_correction("zamba2-7b", "prefill_32k", 2) == 0.0
 
 
 @pytest.mark.parametrize("mesh", ["pod_16x16", "multipod_2x16x16"])
@@ -108,15 +143,15 @@ def test_scan_flops_counted_and_the_correction_for_the_rest():
                                         ("zamba2-7b", "train_4k"), ("zamba2-7b", "prefill_32k")])
 def test_scan_correction_counts_this_devices_heads(arch, shape, mesh):
     """On a production mesh a device holds a 16th of rwkv6's time-mix heads
-    (64 over "model" = 16) and of zamba2's ssm heads (112), so its
-    correction is the no-cut value over 16, as the reference's global term
-    over every chip is for the same rows (its ``/ chips``, 256 or 512 chips
-    of 1/16 or 1/32 of the rows); ``cell_roofline`` reads the record's
-    mesh."""
+    (64 over "model" = 16), so its correction is the no-cut value over 16,
+    as the reference's global term over every chip is for the same rows
+    (its ``/ chips``, 256 or 512 chips of 1/16 or 1/32 of the rows);
+    zamba2's chunked scan needs none on any mesh; ``cell_roofline`` reads
+    the record's mesh."""
     from repro_torch.launch import roofline
 
     whole = roofline.recurrence_flops_correction(arch, shape, 16)
-    assert whole > 0
+    assert (whole > 0) == (arch == "rwkv6-7b")
     assert roofline.recurrence_flops_correction(arch, shape, 16, mesh) == whole / 16
     rec = {"status": "ok", "arch": arch, "shape": shape, "mesh": mesh, "rows_per_device": 16,
            "n_params": 1,
