@@ -25,6 +25,7 @@ import threading
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _disable_current_modes
 
 #: float32(ln 2), the constant ``jnp.exp2`` multiplies by and ``jnp.log2``
 #: divides by (0x3F317218)
@@ -54,27 +55,38 @@ _consts: dict[tuple, torch.Tensor] = {}
 _consts_lock = threading.Lock()
 
 
-def const_f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    """The float32 0-d tensor ``v`` on ``like``'s device, made once a value
-    and device and kept.  A tensor operand, so no kernel ever folds it into
-    a reciprocal or a wider type; made once, so a forward that uses it
-    copies nothing from the host and never waits on the card after its
-    first call (and can be captured into a CUDA graph).  It is made outside
-    inference mode and without grad, so a training path may save it for
-    backward, and it is never written to.  A fake ``like`` (the dry run's
-    ``FakeTensorMode``) gets a constant of its own mode, not kept."""
+def kept(key: tuple, like: torch.Tensor, make) -> torch.Tensor:
+    """``make(device)``, a tensor on ``like``'s device, made once a ``key``
+    and device and kept.  Made once, so a forward that uses it copies
+    nothing from the host and never waits on the card after its first call
+    (and can be captured into a CUDA graph).  It is made outside inference
+    mode and without grad, so a training path may save it for backward,
+    and it is never written to.  It is made outside every dispatch mode (the
+    dry run's meters count a step, and a server makes it before its steps).
+    A fake ``like`` (the dry run's ``FakeTensorMode``) gets a tensor of its
+    own mode, not kept."""
     if isinstance(like, FakeTensor):
-        return torch.tensor(v, dtype=torch.float32, device=like.device)
-    key = (v, math.copysign(1.0, v), like.device)
+        with _disable_current_modes(), like.fake_mode:
+            return make(like.device)
+    key = (*key, like.device)
     t = _consts.get(key)
     if t is None:
         with _consts_lock:
             t = _consts.get(key)
             if t is None:
-                with torch.inference_mode(False), torch.no_grad():
-                    t = torch.tensor(v, dtype=torch.float32, device=like.device)
+                with (_disable_current_modes(), torch.inference_mode(False),
+                      torch.no_grad()):
+                    t = make(like.device)
                 _consts[key] = t
     return t
+
+
+def const_f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """The float32 0-d tensor ``v`` on ``like``'s device, made once a value
+    and device and kept (:func:`kept`).  A tensor operand, so no kernel
+    ever folds it into a reciprocal or a wider type."""
+    return kept((v, math.copysign(1.0, v)), like,
+                lambda dev: torch.tensor(v, dtype=torch.float32, device=dev))
 
 
 def _f(v: float, like: torch.Tensor) -> torch.Tensor:

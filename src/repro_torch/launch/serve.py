@@ -23,8 +23,9 @@ seeded random (``init_params(0, cfg)``, a ``torch.Generator``, so not the
 reference's values).  Each decode step reads every slot's token back to
 the host (``int(cur[i, 0])``), as the reference does.  On a CUDA device, a
 config whose decode step reads its position only in device ops
-(``transformer.decode_graphable``: granite-4.0-h-micro's) replays that step
-as CUDA graphs (:class:`DecodeGraphs`); every other decodes eagerly.
+(``transformer.decode_graphable``: phi4-mini's and granite-4.0-h-micro's)
+replays that step as CUDA graphs (:class:`DecodeGraphs`); every other
+decodes eagerly.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ class _StepGraphs:
         self.pos.fill_(pos)
         self.graphs[i].replay()
         backend.add_launches(self.launches)
+        backend.count_launch(DecodeGraphs, "graph_replays")
         self.last = 1 - i
         return self.logits[i], self.bufs[1 - i]
 
@@ -98,7 +100,13 @@ class DecodeGraphs:
     first copied into the buffer the last step read.  So the caches a step
     returns hold until the second call after it, or the next call handed
     other caches; its logits until the second call after it.  Calls with
-    other weights than the server's run eagerly."""
+    other weights than the server's run eagerly.  ``DecodeGraphs.graph_captures``
+    and ``.graph_replays`` count the batch shapes captured and the steps
+    replayed, over every instance."""
+
+    #: batch shapes captured, and steps replayed, since the counters were last set to 0
+    graph_captures = 0
+    graph_replays = 0
 
     def __init__(self, cfg, params, max_seq: int):
         self.cfg, self.params, self.max_seq = cfg, params, max_seq
@@ -114,6 +122,7 @@ class DecodeGraphs:
                 self.seen.add(key)
                 return T.decode_step(params, tok, caches, pos, self.cfg, self.max_seq)
             entry = self.steps[key] = self._capture(tok, caches, pos)
+            backend.count_launch(DecodeGraphs, "graph_captures")
         elif params is not self.params:
             return T.decode_step(params, tok, caches, pos, self.cfg, self.max_seq)
         return entry.step(tok, caches, pos)

@@ -67,7 +67,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.f32_math import const_f32
+from repro_torch.core.f32_math import const_f32, kept
 from repro_torch.core.quantization import QTensor
 from repro_torch.distributed import sharding as SH
 
@@ -184,12 +184,23 @@ def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def rope_freqs(theta: float, half: int, like: torch.Tensor) -> torch.Tensor:
+    """RoPE's ``half`` float32 frequencies ``theta ** (-i / half)`` on
+    ``like``'s device, made once a ``theta``, width and device and kept
+    (``f32_math.kept``), so a decode step makes no constant on the host."""
+
+    def make(dev):
+        expo = -torch.arange(0, half, dtype=torch.float32, device=dev) / half
+        return torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev), expo)
+
+    return kept(("rope", theta, half), like, make)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
     dh = x.shape[-1]
     half = dh // 2
-    expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), expo)
+    freq = rope_freqs(theta, half, x)
     ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
@@ -457,15 +468,15 @@ def _valid_slots(t: torch.Tensor, pos, spec: AttnCacheSpec, window) -> torch.Ten
 def _decode_scores(q, k, valid, scale=None):
     """fp32 scores of one token's query heads (B, 1, H, Dh) over the cache
     slots of ``k`` (B, T, Hkv, Dh), invalid slots at :data:`NEG_INF`:
-    (B, Hkv, H / Hkv, T).  Over ``sqrt(Dh)``, or times ``scale`` where
-    given (``cfg.attn_scale``'s constant)."""
+    (B, Hkv, H / Hkv, T).  Divided by ``sqrt(Dh)`` (a float32 constant
+    kept a device), or times ``scale`` where given (``cfg.attn_scale``'s
+    constant)."""
     b, _, hq, dh = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, kvh, hq // kvh, dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k).to(torch.float32)
     if scale is None:
-        scores = torch.div(scores, torch.tensor(math.sqrt(dh), dtype=torch.float32,
-                                                device=q.device))
+        scores = torch.div(scores, const_f32(math.sqrt(dh), q))
     else:
         scores = scores * scale
     return torch.where(valid[None, None, None, :], scores, NEG_INF)

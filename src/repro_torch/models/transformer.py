@@ -497,11 +497,12 @@ def decode_graphable(cfg: ArchConfig, params) -> bool:
     """Whether :func:`decode_step` can take its position as a tensor on the
     device, and so be captured once into a CUDA graph that replays at any
     position: a step that reads the position only in device ops and makes
-    no constant on the host.  Attention with no rotation (RoPE's
-    frequencies are made on the host each call) over whole linear caches,
-    Mamba2 mixers, token embeddings not scaled by ``sqrt(d)`` (a host-made
-    constant), plain weights (no int8 ``QTensor``) and no sharding rules."""
-    return (cfg.nope and not cfg.scale_embed and cfg.frontend is None
+    no constant on the host.  Attention, rotary or not (RoPE's frequencies
+    and the scores' divisor are kept a device), over whole linear caches
+    (no ``"local"`` ring caches), Mamba2 mixers, token embeddings not
+    scaled by ``sqrt(d)`` (a host-made constant), plain weights (no int8
+    ``QTensor``) and no sharding rules."""
+    return (not cfg.scale_embed and cfg.frontend is None
             and set(cfg.pattern) <= {"attn", "mamba2", "mamba2_mlp"}
             and SH.active_rules() is None
             and not any(isinstance(t, QTensor) for t in L.tree_leaves(params)))

@@ -279,12 +279,27 @@ def _chain(decode, caches, first, steps, pos0):
     return got, caches
 
 
-def test_decode_with_its_position_on_the_device_is_the_int_path():
+#: the graphed decode's configs: granite's period (NoPE, Mamba2 mixers)
+#: and a small dense RoPE config (phi4-mini's family)
+GRAPHED = ["granite", "phi4"]
+
+
+def _graphed_case(name):
+    """(cfg, params) of a config :data:`GRAPHED` names."""
+    if name == "granite":
+        _, cfg, _, params = _small()
+        return cfg, params
+    cfg = get_config("phi4_mini").smoke()
+    return cfg, T.init_params(0, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", GRAPHED)
+def test_decode_with_its_position_on_the_device_is_the_int_path(case):
     """A decode step handed its position as a 0-d tensor, with its new
     caches written into buffers of its own (what a captured graph replays),
     gives the int path's logits and caches bit for bit, and leaves the
-    caches it was handed as they were."""
-    _, cfg, _, params = _small()
+    caches it was handed as they were: with RoPE as without."""
+    cfg, params = _graphed_case(case)
     tokens = _tokens()
     with torch.inference_mode():
         _, caches = T.forward_with_cache(params, {"tokens": tokens[:, :PROMPT]}, cfg, MAX_SEQ)
@@ -304,15 +319,19 @@ def test_decode_with_its_position_on_the_device_is_the_int_path():
 
 
 def test_only_a_step_that_reads_its_position_on_the_device_is_graphable():
-    """granite's step is; a rotation (phi4, zamba2), int8 weights or a CPU
-    server are not, and the CPU server decodes eagerly."""
+    """granite's step is, and so is phi4's (its RoPE frequencies and score
+    divisor are kept on the device); a shared attention block (zamba2),
+    ring caches and scaled embeddings (gemma3), an RWKV mixer, int8 weights
+    or a CPU server are not, and the CPU server decodes eagerly."""
     from repro_torch.launch.serve import BatchedServer, DecodeGraphs
     from repro_torch.models.quantized import quantize_lm_params
 
     _, cfg, _, params = _small()
     assert T.decode_graphable(cfg, params)
     assert not T.decode_graphable(cfg, quantize_lm_params(params, cfg=cfg))
-    for arch in ("phi4_mini", "zamba2_7b", "gemma3_12b", "rwkv6_7b"):
+    phi4 = get_config("phi4_mini").smoke()
+    assert T.decode_graphable(phi4, T.abstract_params(phi4))
+    for arch in ("zamba2_7b", "gemma3_12b", "rwkv6_7b"):
         other = get_config(arch).smoke()
         assert not T.decode_graphable(other, T.abstract_params(other))
     server = BatchedServer(cfg, params, batch_slots=ROWS, max_seq=MAX_SEQ, device="cpu")
@@ -351,17 +370,22 @@ def _eager_capture(self, tok, caches, pos):
     return _StepGraphs(graphs, bufs, stok, spos, logits, launches)
 
 
-def test_decode_graphs_replay_the_eager_chain(monkeypatch):
+@pytest.mark.parametrize("case", GRAPHED)
+def test_decode_graphs_replay_the_eager_chain(monkeypatch, case):
     """Through ``DecodeGraphs`` (its capture stood in for on the CPU): the
     first call runs eagerly and the second captures, unless a profiler
     records; each step's caches feed the next with no copy, the prefill's
     caches are copied in at a restart and left as they were; the logits
     and the caches are the eager chain's bit for bit; a replay adds its
-    capture's launch counts; other weights run eagerly."""
+    capture's launch counts; ``graph_captures`` counts the one batch shape
+    and ``graph_replays`` every step after it; other weights run eagerly."""
     from repro_torch.launch.serve import DecodeGraphs
 
     monkeypatch.setattr(DecodeGraphs, "_capture", _eager_capture)
-    _, cfg, _, params = _small()
+    monkeypatch.setattr(DecodeGraphs, "graph_captures", 0)
+    monkeypatch.setattr(DecodeGraphs, "graph_replays", 0)
+    counts = lambda: (DecodeGraphs.graph_captures, DecodeGraphs.graph_replays)  # noqa: E731
+    cfg, params = _graphed_case(case)
     tokens = _tokens()
     eager = lambda tok, c, pos: T.decode_step(params, tok, c, pos, cfg, MAX_SEQ)  # noqa: E731
     with torch.inference_mode():
@@ -375,34 +399,40 @@ def test_decode_graphs_replay_the_eager_chain(monkeypatch):
         with profile(activities=[ProfilerActivity.CPU]):
             graphed(first, prefilled, PROMPT)
             graphed(first, prefilled, PROMPT)
-        assert not graphs.steps  # no capture while a profiler records
+        assert not graphs.steps and counts() == (0, 0)  # no capture while a profiler records
         steps = M2.step_updates
         got, got_c = _chain(graphed, prefilled, first, 6, PROMPT)
         entry = graphs.steps[(ROWS, 1)]
-        assert got_c is entry.bufs[0] and M2.step_updates - steps == 6 * 9
+        assert got_c is entry.bufs[0] and counts() == (1, 6)
+        if case == "granite":
+            assert M2.step_updates - steps == 6 * 9
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert all(torch.equal(a, b) for a, b in
                    zip(T.L.tree_leaves(got_c), T.L.tree_leaves(want_c)))
         again, _ = _chain(graphed, prefilled, first, 3, PROMPT)  # a restart
-        assert all(torch.equal(a, b) for a, b in zip(again, want[:3]))
+        assert all(torch.equal(a, b) for a, b in zip(again, want[:3])) and counts() == (1, 9)
         assert all(torch.equal(a, b) for a, b in
                    zip(T.L.tree_leaves(prefilled), T.L.tree_leaves(kept)))
         other = T.L.tree_map(torch.clone, params)
         logits, _ = graphs(other, first, prefilled, PROMPT)
-        assert torch.equal(logits, want[0])
+        assert torch.equal(logits, want[0]) and counts() == (1, 9)
 
 
 @pytest.mark.gpu
-def test_decode_graphs_on_the_card_give_the_eager_bits():
-    """On the card, the server's graphed decode of one period gives
-    the eager step's logits and caches bit for bit over a chain and a
-    restart, and replays after its second call."""
+@pytest.mark.parametrize("case", GRAPHED)
+def test_decode_graphs_on_the_card_give_the_eager_bits(monkeypatch, case):
+    """On the card, the server's graphed decode of granite's period and of a
+    small dense RoPE config gives the eager step's logits and caches bit
+    for bit over a chain and a restart, and replays after its second call:
+    one batch shape captured, every later step replayed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
     from repro_torch.launch.serve import BatchedServer, DecodeGraphs
 
-    _, cfg, _, params = _small()
+    monkeypatch.setattr(DecodeGraphs, "graph_captures", 0)
+    monkeypatch.setattr(DecodeGraphs, "graph_replays", 0)
+    cfg, params = _graphed_case(case)
     dev = torch.device("cuda")
     server = BatchedServer(cfg, params, batch_slots=ROWS, max_seq=MAX_SEQ, device=dev)
     assert isinstance(server._decode, DecodeGraphs)
@@ -421,3 +451,5 @@ def test_decode_graphs_on_the_card_give_the_eager_bits():
                 assert torch.equal(a, b)
             assert all(torch.equal(a, b) for a, b in
                        zip(T.L.tree_leaves(got_c), T.L.tree_leaves(want_c)))
+    # the first step eager, the second captured and replayed, then replays
+    assert (DecodeGraphs.graph_captures, DecodeGraphs.graph_replays) == (1, 11)

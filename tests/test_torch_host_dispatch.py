@@ -1,6 +1,7 @@
 """Host dispatch of the forward, on the CPU: the quantisers' device
 constants are made once a value and device (outside inference mode, so a
-training path may save them, and never for a fake tensor) and give the bits
+training path may save them, outside every dispatch mode, and never for a
+fake tensor) and give the bits
 of constants made anew on each call; the conditions under which
 ``accelerator_forward`` replays a CUDA graph; the kernel launches a graph's
 capture records and each replay adds; and what the graphs are keyed on to
@@ -19,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.core import f32_math, quantization  # noqa: E402
 from repro_torch.core.quantization import fxp8_quantize, int8_symmetric  # noqa: E402
@@ -75,6 +77,33 @@ def test_a_fake_operand_gets_a_constant_that_is_not_kept():
         c = f32_math._f(0.8125, like)
     assert isinstance(c, FakeTensor)
     assert f32_math._consts == kept
+
+
+class _Recorder(TorchDispatchMode):
+    """Records every op dispatched under it (as the dry run's meters count)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+def test_a_kept_tensor_is_made_outside_the_dispatch_modes(fake):
+    """A dispatch mode around a kept tensor's first use records no op of
+    its making: it is set-up, not part of the step a meter counts."""
+    key = ("made outside the modes", fake)
+    with contextlib.ExitStack() as stack:
+        like = torch.empty(1)
+        if fake:
+            like = stack.enter_context(FakeTensorMode()).from_tensor(like)
+        rec = stack.enter_context(_Recorder())
+        t = f32_math.kept(key, like, lambda dev: torch.full((3,), 0.3, device=dev) * 2)
+        assert rec.ops == [] and t.shape == (3,) and isinstance(t, FakeTensor) == fake
+    assert (key + (like.device,) in f32_math._consts) != fake
 
 
 def _data(seed: int, shape=(6, 40)) -> torch.Tensor:

@@ -12,6 +12,8 @@ through the reference function and its counterpart.  Tolerances, and why:
   ``policy_einsum(use_kernel=True)``, which runs the W8A8 matmul on both
   sides (the reference's Pallas kernel in interpret mode).
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -90,6 +92,67 @@ def test_rope_matches_reference(head_dim):
     close(got, want, 1e-6, 1e-6)
     if head_dim % 2:
         assert torch.equal(got[..., -1], torch.from_numpy(x[..., -1]))
+
+
+def _rope_made_each_call(x, positions, theta):
+    """``rope`` with its frequencies made from the host's ``theta`` each
+    call, as the port made them before it kept them a device."""
+    half = x.shape[-1] // 2
+    expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), expo)
+    ang = positions[..., None].to(torch.float32) * freq
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half : 2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot, x[..., 2 * half :]], dim=-1) if 2 * half != x.shape[-1] else rot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("at", ["rows", "device_position"])
+def test_rope_with_kept_frequencies_gives_the_bits_made_each_call(dtype, at):
+    """At integer positions of shape (B, S), and at a 0-d int64 position
+    reshaped to (1, 1) as ``attn_decode`` passes it."""
+    x = torch.from_numpy(rand((2, 7, 3, 16) if at == "rows" else (2, 1, 3, 16), 4)).to(dtype)
+    pos = (torch.arange(7)[None, :].expand(2, 7) + 3000 if at == "rows"
+           else torch.tensor(3071).reshape(1, 1))
+    for theta in (10_000.0, 500_000.0):
+        got = TL.rope(x, pos, theta)
+        assert got.dtype == dtype
+        assert torch.equal(got, _rope_made_each_call(x, pos, theta))
+
+
+def test_a_second_rope_call_reuses_the_kept_table():
+    x = torch.from_numpy(rand((1, 4, 2, 12)))
+    table = TL.rope_freqs(20_000.0, 6, x)
+    TL.rope(x, torch.arange(4)[None, :], 20_000.0)
+    assert TL.rope_freqs(20_000.0, 6, x) is table
+    assert TL.rope_freqs(20_000.0, 5, x) is not table  # another width, another table
+
+
+def test_a_rope_table_first_made_in_inference_mode_lets_training_run_backward():
+    theta = 12_345.0  # a table no other test makes
+    x = torch.from_numpy(rand((1, 3, 2, 8), 5))
+    with torch.inference_mode():
+        served = TL.rope(x, torch.arange(3)[None, :], theta)
+    xg = x.clone().requires_grad_(True)
+    trained = TL.rope(xg, torch.arange(3)[None, :], theta)
+    trained.square().sum().backward()
+    assert torch.equal(trained.detach(), served)
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+
+
+@pytest.mark.parametrize("dh", [16, 128, 15])
+def test_decode_scores_divide_by_the_kept_divisor_as_by_a_host_constant(dh):
+    q = torch.from_numpy(rand((2, 1, 4, dh), 6)).to(torch.bfloat16)
+    k = torch.from_numpy(rand((2, 9, 2, dh), 7)).to(torch.bfloat16)
+    valid = torch.arange(9) <= 6
+    got = TL._decode_scores(q, k, valid)
+    raw = torch.einsum("bkgd,btkd->bkgt", q.reshape(2, 2, 2, dh), k).to(torch.float32)
+    want = torch.where(valid[None, None, None, :],
+                       torch.div(raw, torch.tensor(math.sqrt(dh), dtype=torch.float32)),
+                       TL.NEG_INF)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
