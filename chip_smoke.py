@@ -1155,10 +1155,11 @@ def float_layer_phase(torch, np, dev, gpu_line):
     padded = torch.cat([x[:3], torch.zeros((5, x.shape[1]), device=dev)])
     softmax = acc.cordic_softmax
     for policy in FLOAT_POLICIES:
-        qp = quantize_params(params, cfg, policy=PrecisionPolicy.parse(policy, default="int8"),
-                             device=dev)
-        qp_cpu = qp.to("cpu")
         for out in ("logits", "probabilities"):
+            # an artifact a pass: its CUDA graphs hold the softmax they were captured with
+            qp = quantize_params(params, cfg, policy=PrecisionPolicy.parse(policy, default="int8"),
+                                 device=dev)
+            qp_cpu = qp.to("cpu")
             if out == "logits":  # the softmax's Q15.16 input would hide an ulp
                 acc.cordic_softmax = lambda h: h
             try:

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import itertools
 import time
 from typing import Optional
 
@@ -38,8 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import backend
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.graphs import GraphCache
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.batching import DispatchCore, SlotPolicy
@@ -54,103 +56,74 @@ class Request:
 
 
 @dataclasses.dataclass
-class _StepGraphs:
-    """One batch size's two captured decode steps: ``graphs[i]`` reads the
-    caches in ``bufs[i]`` and writes the new ones into ``bufs[1 - i]`` and
-    its logits into ``logits[i]``, from the token in ``tok`` and the
-    position in ``pos``; ``launches`` is the launch counts of one replay
-    (a :func:`~repro_torch.kernels.backend.record_launches` record)."""
+class _StepBuffers:
+    """One batch shape's buffers: graph ``i`` reads the caches in
+    ``bufs[i]`` and writes the new ones into ``bufs[1 - i]``, from the token
+    in ``tok`` and the position in ``pos``."""
 
-    graphs: list
     bufs: list
     tok: torch.Tensor
     pos: torch.Tensor
-    logits: list
-    launches: dict
     #: the buffer the last step wrote
     last: int = 1
 
-    def step(self, tok: torch.Tensor, caches, pos: int):
-        if caches is self.bufs[0] or caches is self.bufs[1]:
-            i = 0 if caches is self.bufs[0] else 1
-        else:  # the caller's own caches, into the buffer the last step read
+    def step(self, graphs, tok: torch.Tensor, caches, pos: int):
+        i = 0 if caches is self.bufs[0] else 1 if caches is self.bufs[1] else None
+        if i is None:  # the caller's own caches, into the buffer the last step read
             i = 1 - self.last
             T.copy_into(self.bufs[i], caches)
         self.tok.copy_(tok)
         self.pos.fill_(pos)
-        self.graphs[i].replay()
-        backend.add_launches(self.launches)
-        backend.count_launch(DecodeGraphs, "graph_replays")
+        graphs[i].replay()
         self.last = 1 - i
-        return self.logits[i], self.bufs[1 - i]
+        return graphs[i].out, self.bufs[1 - i]
 
 
 class DecodeGraphs:
-    """:func:`~repro_torch.models.transformer.decode_step` replayed as CUDA
-    graphs, for a config and weights that
-    :func:`~repro_torch.models.transformer.decode_graphable` admits: the
-    host issues one replay a step in place of a launch an op.
+    """``transformer.decode_step`` replayed as CUDA graphs (when:
+    :mod:`repro_torch.kernels.graphs`), two a batch shape over two cache
+    buffers (:class:`_StepBuffers`).  Caches the last step returned are
+    read in place, others (a prefill's) copied into the buffer it read: a
+    step's caches hold until the second call after it or a call handed
+    other caches, its logits until the next call.  Other weights than the
+    server's run eagerly."""
 
-    Per batch shape, the first call runs eagerly (it makes the constants
-    kept a device).  The second, unless a profiler records, runs the step
-    once eagerly with its position on the device and captures two graphs
-    over two cache buffers (:class:`_StepGraphs`); it and later calls
-    replay.  A call handed the caches the last step returned replays the
-    graph that reads them, with no copy; other caches (a prefill's) are
-    first copied into the buffer the last step read.  So the caches a step
-    returns hold until the second call after it, or the next call handed
-    other caches; its logits until the second call after it.  Calls with
-    other weights than the server's run eagerly.  ``DecodeGraphs.graph_captures``
-    and ``.graph_replays`` count the batch shapes captured and the steps
-    replayed, over every instance."""
-
-    #: batch shapes captured, and steps replayed, since the counters were last set to 0
+    #: batch shapes captured, and steps served from a replay, over every instance
     graph_captures = 0
     graph_replays = 0
 
     def __init__(self, cfg, params, max_seq: int):
         self.cfg, self.params, self.max_seq = cfg, params, max_seq
-        self.seen: set = set()
-        self.steps: dict[tuple, _StepGraphs] = {}
+        self.graphs = GraphCache(DecodeGraphs)
+        self.nodes = L.tree_nodes(params)
 
     def __call__(self, params, tok: torch.Tensor, caches, pos: int):
-        key = tuple(tok.shape)
-        entry = self.steps.get(key)
-        if entry is None:
-            if (params is not self.params or key not in self.seen
-                    or torch.autograd._profiler_enabled()):
-                self.seen.add(key)
-                return T.decode_step(params, tok, caches, pos, self.cfg, self.max_seq)
-            entry = self.steps[key] = self._capture(tok, caches, pos)
-            backend.count_launch(DecodeGraphs, "graph_captures")
-        elif params is not self.params:
-            return T.decode_step(params, tok, caches, pos, self.cfg, self.max_seq)
-        return entry.step(tok, caches, pos)
+        eager = functools.partial(T.decode_step, params, tok, caches, pos, self.cfg, self.max_seq)
+        if params is not self.params:
+            return eager()
+        # the weight guard's leaves: every dict's values, a swapped leaf or dict among them
+        slots = list(itertools.chain.from_iterable(map(dict.values, self.nodes)))
+        out = self.graphs((tuple(tok.shape),), slots, eager,
+                          lambda: self._buffers(tok, caches, pos),
+                          lambda state, graphs: state.step(graphs, tok, caches, pos))
+        if self.graphs.leaves is slots:  # the guard took them anew: a dict may be new too
+            self.nodes = L.tree_nodes(params)
+        return out
 
-    def _capture(self, tok: torch.Tensor, caches, pos: int) -> _StepGraphs:
-        dev = tok.device
+    def _buffers(self, tok: torch.Tensor, caches, pos: int):
+        """A batch shape's buffers, the first holding ``caches``, and the
+        work of its two graphs."""
         bufs = [L.tree_map(lambda t: torch.empty_like(t, memory_format=torch.contiguous_format),
                            caches) for _ in range(2)]
-        stok = tok.clone()
-        spos = torch.full((), int(pos), dtype=torch.int64, device=dev)
         T.copy_into(bufs[0], caches)
+        state = _StepBuffers(bufs, tok.clone(),
+                             torch.full((), int(pos), dtype=torch.int64, device=tok.device))
 
         def run(i):
-            return T.decode_step(self.params, stok, bufs[i], spos, self.cfg, self.max_seq,
-                                 out=bufs[1 - i])[0]
+            return T.decode_step(self.params, state.tok, bufs[i], state.pos, self.cfg,
+                                 self.max_seq, out=bufs[1 - i])[0]
 
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run(0)  # the allocations and library handles a capture must find made
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graphs, logits = [], []
-        for i in (0, 1):
-            graph = torch.cuda.CUDAGraph()
-            with backend.record_launches() as launches, torch.cuda.graph(graph):
-                logits.append(run(i))
-            graphs.append(graph)
-        return _StepGraphs(graphs, bufs, stok, spos, logits, launches)
+        return state, [lambda: run(0), lambda: run(1)]
 
 
 class BatchedServer:

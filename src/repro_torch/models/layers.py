@@ -100,6 +100,11 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_nodes(tree: dict) -> list[dict]:
+    """Every dict of a nested dict, the root first, in the dicts' own order."""
+    return [tree] + [n for v in tree.values() if isinstance(v, dict) for n in tree_nodes(v)]
+
+
 def init_from_specs(generator: torch.Generator, specs: Any, cfg: ArchConfig):
     """Materialise a PSpec tree into real parameters on ``generator``'s
     device: normals over ``sqrt(fan_in)`` (the first axis of a matrix, the

@@ -40,15 +40,10 @@ forward of the same checkpoint (``repro_torch.models.cnn1d.forward``).
 
 On the card, :func:`accelerator_forward` replays a baked artifact's
 feature-row forward as one CUDA graph per input shape, dtype, activation
-scaling and calling stream (:class:`_ForwardGraphs`): the first such call
-runs eagerly, the second captures the graph, every later one copies its
-rows into the graph's input buffer, launches the graph and clones its
-output.  The host then issues three operations a block instead of the
-forward's ~50, and the card sets the pace.  The graph replays exactly the
-ops the eager forward issues, so its bits are the eager forward's.  An fp32
-checkpoint (baked anew each call), the CPU, raw windows (the front-end's
-syncs) and a forward recorded with the program's spans stay eager, and so
-does a new key once the artifact holds :data:`GRAPHS_PER_ARTIFACT` graphs.
+scaling and calling stream (:mod:`repro_torch.kernels.graphs`): three host
+operations a block in place of ~50, with the eager forward's bits.  An fp32
+checkpoint, the CPU, raw windows (the front-end's syncs) and a forward
+under the program's spans stay eager.
 
 On ``device="cuda"`` (the default) every kernel runs on the card; on
 ``device="cpu"`` the kernels' plain PyTorch versions run.  Without a GPU a
@@ -56,8 +51,6 @@ CUDA request raises.
 """
 from __future__ import annotations
 
-import contextlib
-import dataclasses
 import functools
 import threading
 import weakref
@@ -74,6 +67,7 @@ from repro_torch.kernels.backend import resolve_device, span
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q
 from repro_torch.kernels.cordic_act import cordic_softmax
 from repro_torch.kernels.frontend import project_rows
+from repro_torch.kernels.graphs import GraphCache
 from repro_torch.kernels.ops import _im2col
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.models.cnn1d import CNNConfig, maxpool2
@@ -203,29 +197,8 @@ def _check_raw_windows(qp: QuantizedParams, x: torch.Tensor, feature_kind: str |
         )
 
 
-#: CUDA graphs captured per artifact.  Once it holds this many, a new key
-#: stays eager for good, as every call was before graphs: never slower than
-#: eager, and the memory the graphs hold is bounded.  An adaptive engine's
-#: slot ladder up to 128 slots (1, 2, 4, ..., 128) fits.
-GRAPHS_PER_ARTIFACT = 8
-
-
-@dataclasses.dataclass
-class _Graph:
-    """One captured forward: its graph, the input buffer it reads, the
-    output it writes, the kernel launches one replay makes (a
-    :func:`~repro_torch.kernels.backend.record_launches` record) and the
-    split-sum scratch its kernels read, kept alive with it."""
-
-    graph: "torch.cuda.CUDAGraph"
-    static_x: torch.Tensor
-    static_out: torch.Tensor
-    launches: dict
-    scratch: list
-
-
 def _leaves(qp: QuantizedParams) -> list[torch.Tensor]:
-    """Every tensor of the artifact's layers."""
+    """Every tensor of the artifact's layers: what its graphs read."""
     out = []
     for layer in qp.convs + qp.denses:
         for v in layer.values():
@@ -233,132 +206,38 @@ def _leaves(qp: QuantizedParams) -> list[torch.Tensor]:
     return out
 
 
-def _versions(leaves: list[torch.Tensor]) -> tuple:
-    """The leaves' identities and in-place write counts.  An inference
-    tensor keeps no count; what the graph derives from it is made anew on
-    each replay (``conv1d_fused.packed_weight`` packs it every call)."""
-    return tuple((id(t), 0 if t.is_inference() else t._version) for t in leaves)
-
-
-class _ForwardGraphs:
-    """The CUDA graphs of one artifact's feature-row forward, one per
-    (input shape, dtype, ``per_sample_acts``, calling stream).
-
-    The first call of a key runs eagerly: it builds the kernel library,
-    packs K2's weights, fills the constant cache and grows the calling
-    stream's split scratch.  The second captures, on a stream of its own
-    for each calling stream (so lanes on their own streams never share a
-    graph's scratch): one eager forward there, whose result the call
-    returns, warms that stream's scratch and allocations, then the capture
-    records the same forward into a memory pool shared by the graphs of
-    that calling stream (whose replays are ordered).  A failed capture
-    raises.  While a profiler records, the capture waits for a later call
-    (that call runs eagerly).  Later calls replay.  The graphs hold the
-    artifact's tensors; an in-place write to one, or a swapped leaf, drops
-    them all.  Past :data:`GRAPHS_PER_ARTIFACT` graphs, new keys stay
-    eager."""
-
-    def __init__(self, qp: QuantizedParams):
-        self.leaves = _leaves(qp)
-        self.versions = _versions(self.leaves)
-        self.seen: set = set()
-        self.graphs: dict[tuple, _Graph] = {}
-        self.pools: dict[int, tuple] = {}
-        self.lock = threading.Lock()
-
-    def forward(self, qp: QuantizedParams, x: torch.Tensor, per_sample_acts: bool):
-        dev = qp.device
-        caller = torch.cuda.current_stream(dev)
-        key = (tuple(x.shape), x.dtype, per_sample_acts, caller.cuda_stream)
-        with self.lock:
-            leaves = _leaves(qp)
-            versions = _versions(leaves)
-            if versions != self.versions:
-                self.leaves, self.versions = leaves, versions
-                self.seen.clear()
-                self.graphs.clear()
-                self.pools.clear()
-            entry = self.graphs.get(key)
-            if entry is not None:
-                entry.static_x.copy_(x)
-                entry.graph.replay()
-                backend.add_launches(entry.launches)
-                backend.count_launch(accelerator_forward, "graph_replays")
-                return entry.static_out.clone()
-            if len(self.graphs) < GRAPHS_PER_ARTIFACT:
-                if key in self.seen and not torch.autograd._profiler_enabled():
-                    return self._capture(qp, x, per_sample_acts, caller, key)
-                self.seen.add(key)
-        return forward_quantized(qp, x.to(dev), per_sample_acts)
-
-    def _capture(self, qp, x, per_sample_acts, caller, key):
-        dev = qp.device
-        cap = _capture_stream(dev, caller)
-        if caller.cuda_stream not in self.pools:
-            self.pools[caller.cuda_stream] = torch.cuda.graph_pool_handle()
-        pool = self.pools[caller.cuda_stream]
-        static_x = torch.empty(x.shape, dtype=x.dtype, device=dev)
-        static_x.copy_(x)
-        static_x.record_stream(cap)
-        cap.wait_stream(caller)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(cap):
-            out = forward_quantized(qp, static_x, per_sample_acts)
-            with backend.record_launches() as launches:
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    static_out = forward_quantized(qp, static_x, per_sample_acts)
-                except BaseException:
-                    with contextlib.suppress(RuntimeError):
-                        graph.capture_end()
-                    raise
-                graph.capture_end()
-        caller.wait_stream(cap)
-        out.record_stream(caller)
-        scratch = backend.split_scratch_of(dev, cap.cuda_stream)
-        for t in scratch:
-            t.record_stream(caller)
-        self.graphs[key] = _Graph(graph, static_x, static_out, launches, scratch)
-        backend.count_launch(accelerator_forward, "graph_captures")
-        return out
-
-
 _graphs: dict[int, tuple] = {}
 _graphs_lock = threading.Lock()
-#: the capture stream of each (device, calling stream)
-_capture_streams: dict[tuple, "torch.cuda.Stream"] = {}
 
 
-def _graphs_of(qp: QuantizedParams) -> _ForwardGraphs:
+def _graphs_of(qp: QuantizedParams) -> GraphCache:
     """The artifact's graphs, dropped with the artifact (held by a weak
     reference)."""
     key = id(qp)
     with _graphs_lock:
         hit = _graphs.get(key)
         if hit is None or hit[0]() is not qp:
-            hit = (weakref.ref(qp, lambda _, k=key: _graphs.pop(k, None)), _ForwardGraphs(qp))
-            _graphs[key] = hit
+            hit = _graphs[key] = (weakref.ref(qp, lambda _, k=key: _graphs.pop(k, None)),
+                                  GraphCache(accelerator_forward))
         return hit[1]
 
 
-def _capture_stream(dev: torch.device, caller: "torch.cuda.Stream") -> "torch.cuda.Stream":
-    """The stream the graphs of ``caller`` are captured on.  PyTorch hands
-    out streams from a pool round-robin: one that is a calling stream or
-    another capture stream is passed over."""
-    key = (dev, caller.cuda_stream)
-    with _graphs_lock:
-        cap = _capture_streams.get(key)
-        if cap is None:
-            taken = {k[1] for k in _capture_streams} | {
-                s.cuda_stream for s in _capture_streams.values()}
-            for _ in range(64):
-                cap = torch.cuda.Stream(dev)
-                if cap.cuda_stream not in taken and cap.cuda_stream != caller.cuda_stream:
-                    break
-            else:
-                raise RuntimeError(f"no free stream on {dev} to capture a forward on")
-            _capture_streams[key] = cap
-        return cap
+def _forward_graphed(qp: QuantizedParams, x: torch.Tensor, per_sample_acts: bool):
+    """The forward through the artifact's graphs: a replay copies the rows
+    into the graph's input buffer and clones its output."""
+
+    def build():
+        static_x = x.to(qp.device, memory_format=torch.contiguous_format, copy=True)
+        return static_x, [lambda: forward_quantized(qp, static_x, per_sample_acts)]
+
+    def replay(static_x, graphs):
+        static_x.copy_(x)
+        graphs[0].replay()
+        return graphs[0].out.clone()
+
+    return _graphs_of(qp)(
+        (tuple(x.shape), x.dtype, per_sample_acts), _leaves(qp),
+        lambda: forward_quantized(qp, x.to(qp.device), per_sample_acts), build, replay)
 
 
 def _graphed(params, qp: QuantizedParams, x: torch.Tensor, raw_windows: bool) -> bool:
@@ -390,10 +269,9 @@ def accelerator_forward(
     reference).  ``raw_windows=True`` takes raw (B, 12800) 0.8 s windows and
     runs the artifact's baked front-end first.
 
-    A baked artifact's feature-row forward on the card is replayed as a
-    CUDA graph from its second call with a shape on (see the module
-    docstring); ``accelerator_forward.graph_captures`` and
-    ``.graph_replays`` count the graphs captured and the calls replayed.
+    A baked artifact's feature-row forward on the card replays a CUDA
+    graph (see the module docstring), counted by
+    ``accelerator_forward.graph_captures`` and ``.graph_replays``.
     """
     dev = resolve_device(device)
     if isinstance(params, QuantizedParams):
@@ -414,11 +292,11 @@ def accelerator_forward(
     elif x.ndim != 2:
         raise ValueError(f"(B, M) feature rows expected, got {tuple(x.shape)}")
     if _graphed(params, qp, x, raw_windows):
-        return _graphs_of(qp).forward(qp, x, per_sample_acts)
+        return _forward_graphed(qp, x, per_sample_acts)
     return forward_quantized(qp, x.to(qp.device), per_sample_acts, raw_windows)
 
 
-#: CUDA graphs captured, and calls replayed, since the counters were last set to 0
+#: CUDA graphs captured, and calls served from a replay, since last set to 0
 accelerator_forward.graph_captures = 0
 accelerator_forward.graph_replays = 0
 

@@ -12,6 +12,7 @@ import dataclasses
 import importlib.util
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig, HybridConfig  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import graphs as G  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -339,35 +341,34 @@ def test_only_a_step_that_reads_its_position_on_the_device_is_graphable():
 
 
 class _EagerGraph:
-    """Stands in for a captured graph on the CPU: a replay runs the step
-    into the graph's logits."""
+    """Stands in for a captured graph on the CPU: a replay runs the graph's
+    body again into what its capture returned."""
 
-    def __init__(self, run, logits):
-        self.run, self.logits = run, logits
+    def __init__(self, body, out):
+        self.body, self.out = body, out
 
     def replay(self):
         with backend.record_launches():  # a replay's counts: added from the capture's
-            self.logits.copy_(self.run())
+            self.out.copy_(self.body())
 
 
-def _eager_capture(self, tok, caches, pos):
-    """``DecodeGraphs._capture`` on the CPU, with :class:`_EagerGraph` for
-    the graphs."""
-    from repro_torch.launch.serve import _StepGraphs
-
-    bufs = [T.L.tree_map(torch.empty_like, caches) for _ in range(2)]
-    stok, spos = tok.clone(), torch.tensor(int(pos))
-
-    def run(i):
-        return T.decode_step(self.params, stok, bufs[i], spos, self.cfg, self.max_seq,
-                             out=bufs[1 - i])[0]
-
-    logits = []
-    for i in (0, 1):
+def _eager_capture(self, dev, caller, bodies):
+    """``GraphCache._capture`` on the CPU: each body run once, its launches
+    recorded, with an :class:`_EagerGraph` for its graph."""
+    captured = []
+    for body in bodies:
         with backend.record_launches() as launches:
-            logits.append(run(i).clone())
-    graphs = [_EagerGraph(lambda i=i: run(i), logits[i]) for i in (0, 1)]
-    return _StepGraphs(graphs, bufs, stok, spos, logits, launches)
+            out = body()
+        captured.append(G.Graph(_EagerGraph(body, out), out, launches, []))
+    return captured
+
+
+def _graphs_on_the_cpu(monkeypatch):
+    """The graph cache's card side stood in for: the capture, and one
+    calling stream."""
+    monkeypatch.setattr(G.GraphCache, "_capture", _eager_capture)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=17))
 
 
 @pytest.mark.parametrize("case", GRAPHED)
@@ -381,7 +382,7 @@ def test_decode_graphs_replay_the_eager_chain(monkeypatch, case):
     and ``graph_replays`` every step after it; other weights run eagerly."""
     from repro_torch.launch.serve import DecodeGraphs
 
-    monkeypatch.setattr(DecodeGraphs, "_capture", _eager_capture)
+    _graphs_on_the_cpu(monkeypatch)
     monkeypatch.setattr(DecodeGraphs, "graph_captures", 0)
     monkeypatch.setattr(DecodeGraphs, "graph_replays", 0)
     counts = lambda: (DecodeGraphs.graph_captures, DecodeGraphs.graph_replays)  # noqa: E731
@@ -399,11 +400,11 @@ def test_decode_graphs_replay_the_eager_chain(monkeypatch, case):
         with profile(activities=[ProfilerActivity.CPU]):
             graphed(first, prefilled, PROMPT)
             graphed(first, prefilled, PROMPT)
-        assert not graphs.steps and counts() == (0, 0)  # no capture while a profiler records
+        assert not graphs.graphs.entries and counts() == (0, 0)  # none while a profiler records
         steps = M2.step_updates
         got, got_c = _chain(graphed, prefilled, first, 6, PROMPT)
-        entry = graphs.steps[(ROWS, 1)]
-        assert got_c is entry.bufs[0] and counts() == (1, 6)
+        (state, _), = graphs.graphs.entries.values()
+        assert got_c is state.bufs[0] and counts() == (1, 6)
         if case == "granite":
             assert M2.step_updates - steps == 6 * 9
         for a, b in zip(got, want):
@@ -417,6 +418,57 @@ def test_decode_graphs_replay_the_eager_chain(monkeypatch, case):
         other = T.L.tree_map(torch.clone, params)
         logits, _ = graphs(other, first, prefilled, PROMPT)
         assert torch.equal(logits, want[0]) and counts() == (1, 9)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("change", ["swapped", "written_in_place"])
+@pytest.mark.parametrize("case", GRAPHED)
+def test_a_changed_server_weight_is_never_decoded_from_a_stale_graph(monkeypatch, case, change,
+                                                                     device):
+    """A leaf of the server's params swapped for another tensor, or written
+    in place, after the decode has captured: the next step runs eagerly and
+    the one after captures again, and every step's logits are the eager
+    step's on the weights of that moment.  On the CPU the capture is stood
+    in for; on the card the graphs are real."""
+    from repro_torch.launch.serve import BatchedServer, DecodeGraphs
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    if device == "cpu":
+        _graphs_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(DecodeGraphs, "graph_captures", 0)
+    monkeypatch.setattr(DecodeGraphs, "graph_replays", 0)
+    cfg, params = _graphed_case(case)
+    if device == "cuda":
+        server = BatchedServer(cfg, params, batch_slots=ROWS, max_seq=MAX_SEQ, device=device)
+        p, decode = server.params, server._decode
+        assert isinstance(decode, DecodeGraphs)
+    else:
+        p = params
+        decode = DecodeGraphs(cfg, p, MAX_SEQ)
+    tokens = _tokens().to(device)
+    with torch.inference_mode():
+        logits, caches = T.forward_with_cache(p, {"tokens": tokens[:, :PROMPT]}, cfg, MAX_SEQ)
+    cur, pos = torch.argmax(logits, dim=-1), PROMPT
+    counts = []
+    for k in range(6):
+        if k == 3:
+            with torch.inference_mode():
+                stale = T.decode_step(p, cur, caches, pos, cfg, MAX_SEQ)[0]
+            if change == "swapped":
+                p["final_norm"]["scale"] = p["final_norm"]["scale"] * 1.5
+            else:
+                p["final_norm"]["scale"].mul_(1.5)
+        with torch.inference_mode():
+            want = T.decode_step(p, cur, caches, pos, cfg, MAX_SEQ)[0]
+            got, caches = decode(p, cur, caches, pos)
+            assert torch.equal(got, want), k
+            if k == 3:
+                assert not torch.equal(want, stale)
+            cur, pos = torch.argmax(got, dim=-1), pos + 1
+        counts.append((DecodeGraphs.graph_captures, DecodeGraphs.graph_replays))
+    # eager, captured, replayed; the change: eager, captured, replayed
+    assert counts == [(0, 0), (1, 1), (1, 2), (1, 2), (2, 3), (2, 4)]
 
 
 @pytest.mark.gpu
@@ -446,7 +498,7 @@ def test_decode_graphs_on_the_card_give_the_eager_bits(monkeypatch, case):
         want, want_c = _chain(eager, prefilled, first, 6, PROMPT)
         for _ in range(2):  # the second pass restarts from the prefill
             got, got_c = _chain(graphed, prefilled, first, 6, PROMPT)
-            assert server._decode.steps
+            assert server._decode.graphs.entries
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
             assert all(torch.equal(a, b) for a, b in

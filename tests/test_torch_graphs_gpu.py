@@ -2,8 +2,9 @@
 eager forward's bits for an int8, an FXP8 and a pruned mixed-precision
 artifact (bf16 conv0, fp32 dense1) at 1, 7 and 1,024 rows; inputs from two
 alternating buffers and outputs held across calls stay intact; the counters
-read one capture and ``n - 2`` replays after ``n`` calls, and the kernels'
-launch counters count a replay as one forward; a new shape, a new stream or
+read one capture and ``n - 1`` replays after ``n`` calls (the capturing call
+is served from a replay), and the kernels' launch counters count a replay
+as one forward; a new shape, a new stream or
 a new activation scaling captures a graph of its own, and past the bound
 a new key stays eager while no graph goes; threads sharing an artifact and
 a stream each get their own rows; a replayed and a warm eager forward
@@ -32,6 +33,7 @@ from repro_torch.core.precision_policy import PrecisionPolicy  # noqa: E402
 from repro_torch.core.pruning import plan_prune  # noqa: E402
 from repro_torch.kernels.conv1d_fused import conv1d_fused_q  # noqa: E402
 from repro_torch.kernels.cordic_act import cordic_softmax  # noqa: E402
+from repro_torch.kernels import graphs  # noqa: E402
 from repro_torch.kernels.frontend import project_rows  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.models import cnn1d  # noqa: E402
@@ -88,7 +90,7 @@ def test_replay_is_bitwise_the_eager_forward(card, kind, b):
     x = _rows(b, card)
     want = _bits(forward_quantized(qp, x))
     outs = [_forward(qp, x, card) for _ in range(4)]
-    assert _counts() == (1, 2)
+    assert _counts() == (1, 3)
     for out in outs:
         assert torch.equal(_bits(out), want)
 
@@ -102,14 +104,14 @@ def test_alternating_inputs_and_held_outputs_stay_intact(card, kind):
     assert not torch.equal(want[0], want[1])
     outs = [_forward(qp, xs[i % 2], card) for i in range(7)]
     torch.cuda.synchronize()
-    assert _counts() == (1, 5)
+    assert _counts() == (1, 6)
     for i, out in enumerate(outs):
         assert torch.equal(_bits(out), want[i % 2]), f"call {i}"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,captures,replays", [(1, 0, 0), (2, 1, 0), (3, 1, 1), (9, 1, 7)])
-def test_counters_read_one_capture_and_n_minus_2_replays(card, n, captures, replays):
+@pytest.mark.parametrize("n,captures,replays", [(1, 0, 0), (2, 1, 1), (3, 1, 2), (9, 1, 8)])
+def test_counters_read_one_capture_and_n_minus_1_replays(card, n, captures, replays):
     qp = _artifact("int8", card)
     x = _rows(16, card)
     for _ in range(n):
@@ -128,7 +130,7 @@ def test_kernel_launch_counters_count_a_replay_as_one_forward(card, kind):
             k.launches = 0
         _forward(qp, x, card)
         per_call.append({k.__name__: k.launches for k in KERNELS})
-    assert _counts() == (1, 2)
+    assert _counts() == (1, 3)
     assert per_call[0]["conv1d_fused_q"] >= 2 and per_call[0]["cordic_softmax"] == 1
     assert all(c == per_call[0] for c in per_call), per_call
 
@@ -142,14 +144,14 @@ def test_a_new_shape_stream_or_scaling_captures_a_graph_of_its_own(card):
         want = _bits(forward_quantized(qp, x, **kw))
         for _ in range(3):
             assert torch.equal(_bits(_forward(qp, x, card, **kw)), want)
-        assert _counts() == (i, i)
+        assert _counts() == (i, 2 * i)
     side = torch.cuda.Stream(card)
     x = calls[0][0]
     with torch.cuda.stream(side):
         side.wait_stream(torch.cuda.default_stream(card))
         outs = [_forward(qp, x, card) for _ in range(3)]
         torch.cuda.current_stream(card).synchronize()
-    assert _counts() == (4, 4)
+    assert _counts() == (4, 8)
     want = _bits(forward_quantized(qp, x))
     assert all(torch.equal(_bits(o), want) for o in outs)
 
@@ -173,7 +175,7 @@ def test_threads_sharing_an_artifact_and_a_stream_get_their_own_rows(card):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
-    assert _counts()[0] == 1 and sum(_counts()) == 4 * 12 - 1
+    assert _counts() == (1, 4 * 12 - 1)
     for i, outs in enumerate(got):
         assert len(outs) == 12 and all(torch.equal(_bits(o), want[i]) for o in outs), i
 
@@ -187,19 +189,20 @@ def test_keys_past_the_bound_stay_eager_and_no_graph_goes(card):
         for _ in range(3):  # a graph of its own pool on the side stream
             _forward(qp, _rows(3, card), card)
         torch.cuda.current_stream(card).synchronize()
-    shapes = list(range(4, 4 + accelerator.GRAPHS_PER_ARTIFACT))
+    held = graphs.KEYS_PER_OWNER
+    shapes = list(range(4, 4 + held))
     for b in shapes:  # one more shape than the bound leaves room for
         for _ in range(2):
             _forward(qp, _rows(b, card), card)
-    graphs = accelerator._graphs_of(qp).graphs
-    held = accelerator.GRAPHS_PER_ARTIFACT
-    assert len(graphs) == held and _counts() == (held, 1)
-    assert (3,) + (CFG.input_len,) in {k[0] for k in graphs}
+    entries = accelerator._graphs_of(qp).entries
+    # the side stream's capture and replays, then each shape's capturing call
+    assert len(entries) == held and _counts() == (held, held + 1)
+    assert (3,) + (CFG.input_len,) in {k[0] for k in entries}
     last = shapes[-1]
     x = _rows(last, card, seed=9)
     want = _bits(forward_quantized(qp, x))
     outs = [_forward(qp, x, card) for _ in range(3)]  # the last shape stays eager
-    assert _counts() == (held, 1) and all(torch.equal(_bits(o), want) for o in outs)
+    assert _counts() == (held, held + 1) and all(torch.equal(_bits(o), want) for o in outs)
     for b in shapes[:-1]:  # every captured shape still replays
         x = _rows(b, card, seed=b)
         assert torch.equal(_bits(_forward(qp, x, card)), _bits(forward_quantized(qp, x)))
@@ -208,7 +211,7 @@ def test_keys_past_the_bound_stay_eager_and_no_graph_goes(card):
         out = _forward(qp, x, card)
         torch.cuda.current_stream(card).synchronize()
     assert torch.equal(_bits(out), _bits(forward_quantized(qp, x)))
-    assert _counts() == (held, 2 + len(shapes) - 1)
+    assert _counts() == (held, held + 1 + len(shapes) - 1 + 1)
 
 
 def _host_and_device_events(fn):
@@ -236,7 +239,7 @@ def test_replayed_and_warm_eager_forwards_never_wait_or_copy_pageable(card, kind
     torch.cuda.synchronize()
     replayed, replayed_kernels = _host_and_device_events(lambda: _forward(qp, x, card))
     eager, _ = _host_and_device_events(lambda: forward_quantized(qp, x))
-    assert _counts() == (1, 2)
+    assert _counts() == (1, 3)
     for names in (replayed, eager):
         assert "cudaStreamSynchronize" not in names
         assert not any("Pageable" in n for n in names), [n for n in names if "Pageable" in n]
@@ -246,11 +249,10 @@ def test_replayed_and_warm_eager_forwards_never_wait_or_copy_pageable(card, kind
     for kernel in kernels:
         assert any(kernel in n for n in replayed_kernels), kernel
     # and each wrapper's kernels ran as often as the launches a replay adds
-    recorded = accelerator._graphs_of(qp).graphs
-    (entry,) = recorded.values()
+    ((_, (graph,)),) = accelerator._graphs_of(qp).entries.values()
     for wrapper, name in KERNEL_NAMES.items():
         ran = sum(name in n for n in replayed_kernels)
-        assert ran == entry.launches.get((wrapper, "launches"), 0), (wrapper.__name__, ran)
+        assert ran == graph.launches.get((wrapper, "launches"), 0), (wrapper.__name__, ran)
 
 
 @pytest.mark.gpu
@@ -269,7 +271,7 @@ def test_a_changed_weight_is_never_served_from_a_stale_graph(card, how):
     assert not torch.equal(want, before)
     outs = [_bits(_forward(qp, x, card)) for _ in range(3)]
     assert all(torch.equal(o, want) for o in outs)
-    assert _counts() == (2, 2)
+    assert _counts() == (2, 4)
 
 
 @pytest.mark.gpu

@@ -25,8 +25,9 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from repro_torch.core import f32_math, quantization  # noqa: E402
 from repro_torch.core.quantization import fxp8_quantize, int8_symmetric  # noqa: E402
 from repro_torch.data.features import FEATURE_DIMS, N_SAMPLES  # noqa: E402
-from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import backend, graphs  # noqa: E402
 from repro_torch.models import cnn1d  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serving import accelerator  # noqa: E402
 from repro_torch.serving.accelerator import accelerator_forward  # noqa: E402
 from repro_torch.serving.quantized_params import quantize_params  # noqa: E402
@@ -222,56 +223,237 @@ def test_split_scratch_of_a_stream_is_what_its_graph_keeps():
     assert backend.split_scratch_of(cpu, 987654321) == []
 
 
+class _Owner:
+    """One owner of a :class:`~repro_torch.kernels.graphs.GraphCache` on the
+    CPU, with the card's side stubbed: a capture runs each body once and
+    records a graph whose replay only counts; the owner's eager path counts
+    and returns zeros.  ``detector``: an artifact's feature-row forward;
+    ``lm``: a server's decode step, on the smoke phi4 params of the graphed
+    decode tests (``tests/test_torch_granite_hybrid.py``)."""
+
+    def __init__(self, name, monkeypatch):
+        self.name, self.calls = name, {"eager": 0, "capture": 0, "replay": 0}
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda dev=None: types.SimpleNamespace(cuda_stream=17))
+        monkeypatch.setattr(graphs.GraphCache, "_capture",
+                            lambda cache, dev, caller, bodies: self._capture(bodies))
+        if name == "detector":
+            _, self.qp = _artifact()
+            self.counters, self.bodies = accelerator_forward, 1
+            self.cache = accelerator._graphs_of(self.qp)
+            monkeypatch.setattr(accelerator, "forward_quantized", self._eager_forward)
+        else:
+            from repro_torch.configs import get_config
+            from repro_torch.launch.serve import DecodeGraphs
+            from repro_torch.models import transformer
+
+            cfg = get_config("phi4_mini").smoke()
+            self.params = transformer.init_params(0, cfg, device="cpu")
+            self.counters, self.bodies = DecodeGraphs, 2
+            self.decode = DecodeGraphs(cfg, self.params, 8)
+            self.cache = self.decode.graphs
+            monkeypatch.setattr(transformer, "decode_step", self._eager_step)
+        monkeypatch.setattr(self.counters, "graph_captures", 0)
+        monkeypatch.setattr(self.counters, "graph_replays", 0)
+
+    def _capture(self, bodies):
+        self.calls["capture"] += 1
+        replay = types.SimpleNamespace(
+            replay=lambda: self.calls.__setitem__("replay", self.calls["replay"] + 1))
+        return [graphs.Graph(replay, body(), {}, []) for body in bodies]
+
+    def _eager_forward(self, qp, x, per_sample_acts=True, raw_windows=False):
+        self.calls["eager"] += 1
+        return torch.zeros(x.shape[0], CFG.n_classes)
+
+    def _eager_step(self, params, tok, caches, pos, cfg, max_seq, out=None):
+        self.calls["eager"] += 1
+        return torch.zeros(tok.shape[0], 1, cfg.vocab), caches if out is None else out
+
+    def call(self, b: int) -> torch.Tensor:
+        """One call of ``b`` rows through the owner's graphs."""
+        if self.name == "detector":
+            return accelerator._forward_graphed(self.qp, torch.empty(b, CFG.input_len), True)
+        caches = {"k": torch.zeros(b, 3), "v": {"x": torch.zeros(2, b)}}
+        logits, new = self.decode(self.params, torch.zeros(b, 1, dtype=torch.int32), caches, 5)
+        assert set(new) == {"k", "v"}
+        return logits[:, 0]
+
+    def change(self, how: str) -> None:
+        """One weight written in place, or swapped for a copy, or none."""
+        if how == "written_in_place":
+            (self.qp.convs[1]["w"].q if self.name == "detector" else
+             self.params["groups"]["pos0"]["attn"]["wq"]).add_(0)
+        elif how == "swapped" and self.name == "detector":
+            self.qp.denses[0]["b"] = self.qp.denses[0]["b"].clone()
+        elif how == "swapped":
+            self.params["final_norm"]["scale"] = self.params["final_norm"]["scale"].clone()
+
+    def counts(self) -> tuple:
+        return (self.counters.graph_captures, self.counters.graph_replays)
+
+
+OWNERS = ["detector", "lm"]
+
+
 @pytest.mark.parametrize("change", ["written_in_place", "swapped", "none"])
-def test_graph_key_follows_every_weight(change):
-    _, qp = _artifact()
-    before = accelerator._versions(accelerator._leaves(qp))
-    assert len(before) == 3 * (len(qp.convs) + len(qp.denses))  # payload, scale, bias
-    if change == "written_in_place":
-        qp.convs[1]["w"].q.add_(0)
-    elif change == "swapped":
-        qp.denses[0]["b"] = qp.denses[0]["b"].clone()
-    after = accelerator._versions(accelerator._leaves(qp))
-    assert (after == before) is (change == "none")
+@pytest.mark.parametrize("owner", OWNERS)
+def test_graph_key_follows_every_weight(monkeypatch, owner, change):
+    """The graphs are keyed on every leaf's identity and in-place write
+    count: a weight written in place or swapped drops every graph the owner
+    holds, so the next call runs eagerly and the one after captures again;
+    with no change the call replays."""
+    o = _Owner(owner, monkeypatch)
+    for _ in range(3):  # eager, capture, replay
+        o.call(4)
+    assert o.counts() == (1, 2) and len(o.cache.entries) == 1
+    tensors = [t for t in o.cache.leaves if isinstance(t, torch.Tensor)]
+    if owner == "detector":  # payload, scale, bias
+        assert len(tensors) == len(o.cache.leaves) == 3 * (len(o.qp.convs) + len(o.qp.denses))
+    else:  # beside the dicts that hold them
+        assert len(tensors) == len(L.tree_leaves(o.params))
+    o.change(change)
+    eager = o.calls["eager"]
+    o.call(4)
+    if change == "none":
+        assert o.counts() == (1, 3) and o.calls["eager"] == eager
+    else:
+        assert not o.cache.entries and o.counts() == (1, 2) and o.calls["eager"] == eager + 1
+        o.call(4)
+        assert o.counts() == (2, 3) and len(o.cache.entries) == 1
+
+
+@pytest.mark.parametrize("where", ["top", "nested"])
+def test_a_swapped_dict_and_a_leaf_swapped_in_it_later_are_both_seen(monkeypatch, where):
+    """A server's params dict replaced by a copy drops the decode's graphs;
+    once they are captured again, a leaf swapped in the new dict drops them
+    too: the guard reads the dicts the params hold now."""
+    o = _Owner("lm", monkeypatch)
+    for _ in range(3):
+        o.call(4)
+    parent, name = ((o.params, "final_norm") if where == "top" else
+                    (o.params["groups"]["pos0"], "attn"))
+    parent[name] = dict(parent[name])
+    leaf = next(k for k, v in parent[name].items() if isinstance(v, torch.Tensor))
+    o.call(4)
+    assert not o.cache.entries and o.counts() == (1, 2)
+    for _ in range(2):
+        o.call(4)
+    assert o.counts() == (2, 4) and len(o.cache.entries) == 1
+    parent[name][leaf] = parent[name][leaf].clone()
+    o.call(4)
+    assert not o.cache.entries and o.counts() == (2, 4)
+    o.call(4)
+    assert o.counts() == (3, 5)
+
+
+class _FakeCard:
+    """The card's side of a real :meth:`GraphCache._capture` on the CPU:
+    streams that order nothing, a pool handle, and graphs that note their
+    capture's begin and end and whose replay runs nothing."""
+
+    def __init__(self, monkeypatch):
+        self.ends = 0
+        card = self
+        stream = types.SimpleNamespace(cuda_stream=17, wait_stream=lambda other: None)
+        side = types.SimpleNamespace(cuda_stream=18, wait_stream=lambda other: None)
+
+        class Graph:
+            def capture_begin(self, pool=None, capture_error_mode=None):
+                assert capture_error_mode == "thread_local"
+
+            def capture_end(self):
+                card.ends += 1
+
+            def replay(self):
+                pass
+
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: stream)
+        monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+        monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+        monkeypatch.setattr(graphs, "_capture_stream", lambda dev, caller: side)
+        monkeypatch.setattr(backend, "split_scratch_of", lambda dev, stream: [])
+
+
+def _kernel():
+    pass
+
+
+_kernel.launches = 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 6])
+def test_every_call_counts_one_forward_s_launches(monkeypatch, n):
+    """Through the cache's own capture: the capturing call's warm run adds
+    no launches and its replay adds the capture's, so each of ``n`` calls
+    counts the two launches one forward makes, and the counters read one
+    capture and ``n - 1`` replays."""
+    _FakeCard(monkeypatch)
+    monkeypatch.setattr(_kernel, "launches", 0)
+    owner = types.SimpleNamespace(graph_captures=0, graph_replays=0)
+    cache = graphs.GraphCache(owner)
+    w = torch.ones(3)
+
+    def forward():
+        backend.count_launch(_kernel)
+        backend.count_launch(_kernel)
+        return w * 2
+
+    per_call = []
+    for _ in range(n):
+        before = _kernel.launches
+        out = cache(("k",), [w], forward, lambda: (None, [forward]),
+                    lambda state, gs: gs[0].replay() or gs[0].out)
+        per_call.append(_kernel.launches - before)
+        assert torch.equal(out, w * 2)
+    assert per_call == [2] * n
+    assert (owner.graph_captures, owner.graph_replays) == (min(n - 1, 1), max(n - 1, 0))
+
+
+def test_a_failed_capture_ends_it_and_raises(monkeypatch):
+    """A body that fails while captured: the capture is ended, the error
+    reaches the caller, no graph is kept, and the next call tries again."""
+    card = _FakeCard(monkeypatch)
+    owner = types.SimpleNamespace(graph_captures=0, graph_replays=0)
+    cache = graphs.GraphCache(owner)
+    w = torch.ones(3)
+    runs = []
+
+    def body():
+        runs.append(1)
+        if len(runs) == 2:  # the first capture; its warm run passed
+            raise RuntimeError("not capturable")
+        return w + 1
+
+    call = lambda: cache(("k",), [w], lambda: w + 1, lambda: (None, [body]),  # noqa: E731
+                         lambda state, gs: gs[0].out)
+    call()
+    with pytest.raises(RuntimeError, match="not capturable"):
+        call()
+    assert card.ends == 1 and not cache.entries and owner.graph_captures == 0
+    assert torch.equal(call(), w + 1)
+    assert card.ends == 2 and len(cache.entries) == 1 and owner.graph_captures == 1
 
 
 @pytest.mark.parametrize("extra", [0, 3])
-def test_keys_past_the_bound_stay_eager_for_good(monkeypatch, extra):
-    """Each key runs eagerly, then captures, then replays, until the artifact
-    holds ``GRAPHS_PER_ARTIFACT`` graphs; later keys run eagerly on every
-    call, and no graph is ever dropped.  The card's side is stubbed: the
-    capture records a graph whose replay does nothing."""
-    _, qp = _artifact()
-    graphs = accelerator._ForwardGraphs(qp)
-    calls = {"eager": 0, "capture": 0, "replay": 0}
-    stream = types.SimpleNamespace(cuda_stream=17)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: stream)
-    monkeypatch.setattr(accelerator_forward, "graph_replays", 0)
-
-    def eager(qp, x, per_sample_acts=True, raw_windows=False):
-        calls["eager"] += 1
-        return torch.zeros(x.shape[0], CFG.n_classes)
-
-    def capture(self, qp, x, per_sample_acts, caller, key):
-        calls["capture"] += 1
-        replay = types.SimpleNamespace(replay=lambda: calls.__setitem__("replay", calls["replay"] + 1))
-        self.graphs[key] = accelerator._Graph(
-            replay, torch.empty(x.shape), torch.zeros(x.shape[0], CFG.n_classes), {}, [])
-        return eager(qp, x)
-
-    monkeypatch.setattr(accelerator, "forward_quantized", eager)
-    monkeypatch.setattr(accelerator._ForwardGraphs, "_capture", capture)
-    n = accelerator.GRAPHS_PER_ARTIFACT + extra
+@pytest.mark.parametrize("owner", OWNERS)
+def test_keys_past_the_bound_stay_eager_for_good(monkeypatch, owner, extra):
+    """Each key runs eagerly, then captures and serves a replay, then
+    replays, until the owner holds ``KEYS_PER_OWNER`` keys' graphs; later
+    keys run eagerly on every call, and no graph is ever dropped."""
+    o = _Owner(owner, monkeypatch)
+    n = graphs.KEYS_PER_OWNER + extra
     for _ in range(4):
         for b in range(1, n + 1):
-            out = graphs.forward(qp, torch.empty(b, CFG.input_len), True)
-            assert out.shape == (b, CFG.n_classes)
-    held = accelerator.GRAPHS_PER_ARTIFACT
-    assert len(graphs.graphs) == held and calls["capture"] == held
-    assert {k[0][0] for k in graphs.graphs} == set(range(1, held + 1))
-    assert calls["replay"] == accelerator_forward.graph_replays == 2 * held
-    assert calls["eager"] == 2 * held + 4 * extra
-    assert len(graphs.seen) == held + extra
+            out = o.call(b)
+            assert out.shape[0] == b
+    held = graphs.KEYS_PER_OWNER
+    assert len(o.cache.entries) == held and o.calls["capture"] == held
+    assert {k[0][0] for k in o.cache.entries} == set(range(1, held + 1))
+    assert o.calls["replay"] == o.counts()[1] == 3 * held
+    assert o.calls["eager"] == (1 + o.bodies) * held + 4 * extra
+    assert len(o.cache.seen) == held + extra
 
 
 def _stress(fn, workers: int = 16):
@@ -310,3 +492,13 @@ def test_threads_racing_for_an_artifacts_graphs_get_one_cache():
     _, qp = _artifact()
     got = _stress(lambda i: accelerator._graphs_of(qp))
     assert len({id(g) for g in got}) == 1
+
+
+@pytest.mark.parametrize("owner", OWNERS)
+def test_threads_racing_through_one_cache_capture_once(monkeypatch, owner):
+    """Threads calling one owner with one key at once: one call runs
+    eagerly, one captures, and every other call is served from a replay."""
+    o = _Owner(owner, monkeypatch)
+    _stress(lambda i: [o.call(4) for _ in range(6)])
+    assert o.counts() == (1, 16 * 6 - 1) and o.calls["replay"] == 16 * 6 - 1
+    assert o.calls["capture"] == 1 and o.calls["eager"] == 1 + o.bodies
